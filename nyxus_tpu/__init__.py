@@ -1,31 +1,30 @@
-"""nyxus_tpu: a TPU-native (JAX/XLA/Pallas) scalable image feature-extraction
-framework with the capabilities of PolusAI/nyxus.
+"""nyxus_tpu: a JAX/XLA scalable image feature-extraction framework with the
+capabilities of PolusAI/nyxus.
 
 Computes engineered intensity / texture / morphology / image-quality features
-per segmented ROI or whole slide, batched over padded ROI tensors on TPU,
-sharded over device meshes for scale-out.
+per segmented ROI or whole slide, batched over padded ROI tensors on the
+accelerator JAX exposes (a GPU in production), sharded over device meshes for
+scale-out.
 """
 
 import os as _os
 
+# persistent compile cache used when JAX_COMPILATION_CACHE_DIR is unset: a
+# fixed path, because the cache directory is part of each entry's key
+_DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
 
 def _setup_compile_cache():
     """Persistent XLA compilation cache: bucket-shape kernels compile once per
-    machine, not once per process.  Opt out with NYXUS_TPU_NO_CACHE=1."""
-    if _os.environ.get("NYXUS_TPU_NO_CACHE"):
-        return
+    machine, not once per process.  A set ``JAX_COMPILATION_CACHE_DIR``
+    (which JAX reads itself) names the directory; otherwise it is
+    ``<checkout>/.jax_cache``."""
     import jax
-    if jax.config.jax_compilation_cache_dir:
-        return
-    cache = _os.environ.get(
-        "NYXUS_TPU_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "nyxus_tpu", "jax"))
-    try:
-        _os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-    except Exception:
-        pass
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", _DEFAULT_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
 
 
 _setup_compile_cache()

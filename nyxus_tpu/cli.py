@@ -18,7 +18,7 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(
         prog="nyxus_tpu",
-        description="TPU-native scalable image feature extraction")
+        description="Scalable image feature extraction on JAX accelerators")
     a = p.add_argument
     a("--intDir", required=True, help="intensity image directory")
     a("--segDir", required=True, help="segmentation mask directory")
@@ -73,11 +73,13 @@ def build_parser():
     a("--hchi", default="", help="child channel number")
     a("--hag", default="NONE",
       help="child feature aggregation: NONE, SUM, MEAN, MIN, MAX, or WMA")
-    # accelerator control (reference --useGpu/--gpuDeviceID; the TPU engine
-    # uses every visible device by default)
+    # accelerator control (reference --useGpu/--gpuDeviceID; this engine
+    # runs on JAX's default device)
     a("--useGpu", default="true")
     a("--gpuDeviceID", type=int, default=-1)
     a("--exclusivetiming", default="false")
+    a("--precision", default="f32", choices=["f32", "f64"],
+      help="device compute precision (f64 turns on JAX's 64-bit mode)")
     return p
 
 
@@ -162,8 +164,13 @@ def main(argv=None):
         Stopwatch.enable()
         Stopwatch.exclusive = _truthy(args.exclusivetiming)
 
+    if args.precision == "f64":
+        import jax
+        jax.config.update("jax_enable_x64", True)
+
     common = dict(
         features=[t for t in args.features.split(",") if t],
+        precision=args.precision,
         coarse_gray_depth=args.coarseGrayDepth,
         neighbor_distance=args.pixelDistance,
         ibsi=_truthy(args.ibsi),

@@ -1,4 +1,4 @@
-"""Engine configuration: the TPU-native equivalent of the reference's
+"""Engine configuration: this engine's equivalent of the reference's
 Environment + per-family Fsettings (reference: src/nyx/environment.h:30-278,
 src/nyx/feature_settings.h:6-81, defaults env_features.cpp:714-738).
 
@@ -86,7 +86,8 @@ class EngineConfig:
         eps = 1.1920929e-07  # FLT_EPSILON (helpers.h:484-487)
         return abs(self.aniso_x - 1.0) > eps or abs(self.aniso_y - 1.0) > eps
 
-    # compute precision: 'f32' (TPU-native) or 'f64' (validation / CPU)
+    # compute precision: 'f32' (production) or 'f64' (reference parity;
+    # needs JAX's 64-bit mode)
     precision: str = "f32"
 
     # batching

@@ -1,7 +1,7 @@
 """Module-level device-introspection functions
 (reference: src/nyx/python/nyxus/functions.py:3-6 — gpu_is_available /
 get_gpu_properties over the CUDA device; here the accelerator is whatever
-JAX sees, normally a TPU).
+JAX sees, normally a GPU).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ def _accel_devices():
 
 
 def gpu_is_available(nyxus_instance_id=None):
-    """True when a non-CPU accelerator (TPU) backs the engine."""
+    """True when a non-CPU accelerator (a GPU) backs the engine."""
     return len(_accel_devices()) > 0
 
 

@@ -13,11 +13,16 @@ import re
 
 
 def list_files(directory: str, file_pattern: str = ".*"):
+    """Sorted paths of the images in ``directory`` whose names match
+    ``file_pattern``: regular files, and OME-Zarr containers (``*.zarr``
+    directories)."""
     rx = re.compile(file_pattern)
     out = []
     for name in sorted(os.listdir(directory)):
         p = os.path.join(directory, name)
-        if os.path.isfile(p) and rx.fullmatch(name):
+        is_image = os.path.isfile(p) or (
+            name.lower().endswith(".zarr") and os.path.isdir(p))
+        if is_image and rx.fullmatch(name):
             out.append(p)
     return out
 

@@ -6,8 +6,8 @@ build's equivalents: the native C++ tiled/strip TIFF region server
 (``nyxus_tpu.native.TiffReader``, used for all tile-streamed paths), the
 self-written NIfTI-1/2 reader (``nifti.py``), DICOM incl. encapsulated
 RLE/JPEG transfer syntaxes (``dicom.py``), and OME-Zarr v2 with native
-blosc/zlib codecs (``zarr.py``).  PIL is only a last-resort fallback for
-formats libtiff cannot open (e.g. PNG masks in tests).
+blosc/zlib codecs (``zarr.py``).  PIL reads what libtiff cannot open (e.g.
+PNG masks in tests), and reads TIFF on hosts without libtiff.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def read_gray(path: str) -> np.ndarray:
         # fast path: native libtiff region server (tiled/strip, any dtype)
         try:
             from .. import native
-            if native.available():
+            if native.tiff_available():
                 with native.TiffReader(path) as r:
                     if r.is_float:
                         return r.read_all("f32")

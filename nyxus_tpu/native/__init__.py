@@ -2,22 +2,24 @@
 
 The reference keeps its I/O and output stages native (libtiff loaders,
 src/nyx/grayscale_tiff.h; CSV writer, src/nyx/output_2_csv.cpp). This package
-provides the TPU build's native equivalents:
+provides their equivalents in two shared libraries:
 
-* ``TiffReader`` -- tiled/strip grayscale TIFF region server + streaming
-  prescan (any of u8/u16/u32/i8..i64/f32/f64, LZW/deflate/none compression
-  via libtiff)
-* ``write_csv`` -- feature-table CSV writer
+* ``libnyxnative.so`` -- CSV writer, zarr/blosc codecs, contours, host
+  geometry and label discovery (needs only zlib)
+* ``libnyxtiff.so`` -- ``TiffReader``/``write_tiff``: tiled/strip grayscale
+  TIFF region server + streaming prescan (any of u8/u16/u32/i8..i64/f32/f64,
+  LZW/deflate/none compression via libtiff)
 
-The shared library is compiled on first use with g++ (cached next to the
-sources); every entry point degrades gracefully (``available()`` -> False)
-when a toolchain or libtiff is missing, and the Python fallbacks in
-``nyxus_tpu.io.readers`` take over.
+Both are compiled on first use with g++ into ``_build/`` for the CPU of the
+host that loads them.  ``available()`` reports the first library and
+``tiff_available()`` the second, so hosts without libtiff keep every other
+native stage and read TIFF through Pillow.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -26,54 +28,78 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
-_LIB = os.path.join(_DIR, "_build", "libnyxnative.so")
+_BUILD = os.path.join(_DIR, "_build")
 
 _lock = threading.Lock()
 _lib = None
 _build_err = None
+_tiff_lib = None
+_tiff_err = None
 
-_SOURCES = ("tiff_reader.cpp", "csv_writer.cpp", "zarr_codec.cpp",
-            "contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp",
-            "discover.cpp")
+# library file -> (sources, link flags)
+_LIBS = {
+    "libnyxnative.so": (("csv_writer.cpp", "zarr_codec.cpp", "contour.cpp",
+                         "geomfeats.cpp", "geomfeats_batch.cpp",
+                         "discover.cpp"), ("-l:libz.so.1",)),
+    "libnyxtiff.so": (("tiff_reader.cpp",), ("-ltiff",)),
+}
 
-
+# -march=native: the library is built on the host that loads it, and the
+# stamp below rebuilds it when it was copied from another CPU.
+# -ffp-contract=off: FMA contraction would change double rounding and break
+# bit-parity with the reference/oracle float semantics.
 _CFLAGS = ("-O3", "-march=native", "-ffp-contract=off")
 
 
-def _needs_build() -> bool:
-    if not os.path.exists(_LIB):
+def _stamp() -> str:
+    """Compile flags plus the host's identity: the target options g++
+    resolves ``-march=native`` to on this CPU."""
+    proc = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                          capture_output=True, text=True, timeout=60)
+    host = hashlib.sha256(proc.stdout.encode()).hexdigest()
+    return " ".join(_CFLAGS) + " host=" + host
+
+
+def _needs_build(lib_path: str, sources, stamp: str) -> bool:
+    if not os.path.exists(lib_path):
         return True
-    # flag stamp: changing compile flags must invalidate the cached .so
-    # (source mtimes alone once left a stale build in place)
-    stamp = _LIB + ".flags"
+    # flag + host stamp: changing compile flags, or loading on another CPU,
+    # must invalidate the cached .so (source mtimes alone once left a stale
+    # build in place)
     try:
-        if open(stamp).read() != " ".join(_CFLAGS):
-            return True
+        with open(lib_path + ".flags") as f:
+            if f.read() != stamp:
+                return True
     except OSError:
         return True
-    lib_mtime = os.path.getmtime(_LIB)
-    return any(
-        os.path.getmtime(os.path.join(_SRC, s)) > lib_mtime for s in _SOURCES)
+    lib_mtime = os.path.getmtime(lib_path)
+    return any(os.path.getmtime(os.path.join(_SRC, s)) > lib_mtime
+               for s in sources)
 
 
-def _build():
-    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    srcs = [os.path.join(_SRC, s) for s in _SOURCES]
-    # -march=native is safe: the .so is built on first use on the machine
-    # that runs it (never committed; _needs_build rebuilds on source change)
-    # -ffp-contract=off: FMA contraction changes double rounding and breaks
-    # bit-parity with the reference/oracle float semantics
-    # -march=native is safe: the .so is built on first use on the machine
-    # that runs it (never committed; _needs_build rebuilds on source change).
-    # -ffp-contract=off: FMA contraction would change double rounding and
-    # break bit-parity with the reference/oracle float semantics.
-    cmd = ["g++", *_CFLAGS, "-shared",
-           "-fPIC", "-std=c++17", "-o", _LIB, *srcs, "-ltiff"]
+def build(name: str, out_dir: str = _BUILD) -> str:
+    """Compile library ``name`` of ``_LIBS`` into ``out_dir`` unless an
+    up-to-date build for this host is there; returns its path."""
+    sources, link = _LIBS[name]
+    lib_path = os.path.join(out_dir, name)
+    stamp = _stamp()
+    if not _needs_build(lib_path, sources, stamp):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    # build beside the target and rename into place: concurrent processes
+    # (parallel test workers) never load a half-written library
+    tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+    cmd = ["g++", *_CFLAGS, "-shared", "-fPIC", "-std=c++17", "-o", tmp,
+           *[os.path.join(_SRC, s) for s in sources], *link]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError("native build failed:\n" + proc.stderr)
-    with open(_LIB + ".flags", "w") as f:
-        f.write(" ".join(_CFLAGS))
+        raise RuntimeError("native build of %s failed:\n%s"
+                           % (name, proc.stderr))
+    os.replace(tmp, lib_path)
+    with open(tmp, "w") as f:
+        f.write(stamp)
+    os.replace(tmp, lib_path + ".flags")
+    return lib_path
 
 
 def _load():
@@ -82,30 +108,10 @@ def _load():
         if _lib is not None or _build_err is not None:
             return _lib
         try:
-            if _needs_build():
-                _build()
-            lib = ctypes.CDLL(_LIB)
-        except Exception as e:  # toolchain/libtiff missing -> Python fallback
+            lib = ctypes.CDLL(build("libnyxnative.so"))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
             _build_err = e
             return None
-        lib.nyxtiff_open.restype = ctypes.c_void_p
-        lib.nyxtiff_open.argtypes = [ctypes.c_char_p]
-        lib.nyxtiff_info.restype = ctypes.c_int
-        lib.nyxtiff_info.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        for name, dt in (("f32", None), ("f64", None), ("u32", None)):
-            fn = getattr(lib, "nyxtiff_read_region_" + name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
-                           ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
-        lib.nyxtiff_prescan.restype = ctypes.c_int
-        lib.nyxtiff_prescan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_void_p, ctypes.c_void_p]
-        lib.nyxtiff_close.restype = None
-        lib.nyxtiff_close.argtypes = [ctypes.c_void_p]
-        lib.nyxtiff_write.restype = ctypes.c_int
-        lib.nyxtiff_write.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32, ctypes.c_int]
         lib.nyxcsv_write.restype = ctypes.c_int
         lib.nyxcsv_write.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p,
@@ -185,6 +191,42 @@ def available() -> bool:
     return _load() is not None
 
 
+def _load_tiff():
+    global _tiff_lib, _tiff_err
+    with _lock:
+        if _tiff_lib is not None or _tiff_err is not None:
+            return _tiff_lib
+        try:
+            lib = ctypes.CDLL(build("libnyxtiff.so"))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            _tiff_err = e
+            return None
+        lib.nyxtiff_open.restype = ctypes.c_void_p
+        lib.nyxtiff_open.argtypes = [ctypes.c_char_p]
+        lib.nyxtiff_info.restype = ctypes.c_int
+        lib.nyxtiff_info.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        for name in ("f32", "f64", "u32"):
+            fn = getattr(lib, "nyxtiff_read_region_" + name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                           ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+        lib.nyxtiff_prescan.restype = ctypes.c_int
+        lib.nyxtiff_prescan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_void_p, ctypes.c_void_p]
+        lib.nyxtiff_close.restype = None
+        lib.nyxtiff_close.argtypes = [ctypes.c_void_p]
+        lib.nyxtiff_write.restype = ctypes.c_int
+        lib.nyxtiff_write.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32, ctypes.c_int]
+        _tiff_lib = lib
+        return _tiff_lib
+
+
+def tiff_available() -> bool:
+    return _load_tiff() is not None
+
+
 _DTYPES = {"f32": np.float32, "f64": np.float64, "u32": np.uint32}
 
 
@@ -192,9 +234,10 @@ class TiffReader:
     """Region server over one grayscale TIFF (tiled or stripped)."""
 
     def __init__(self, path: str):
-        lib = _load()
+        lib = _load_tiff()
         if lib is None:
-            raise RuntimeError("native library unavailable: %r" % _build_err)
+            raise RuntimeError("native TIFF library unavailable: %r"
+                               % _tiff_err)
         self._lib = lib
         self._h = lib.nyxtiff_open(path.encode())
         if not self._h:
@@ -256,9 +299,9 @@ _WRITE_DTYPES = {np.dtype(np.uint8): 1, np.dtype(np.uint16): 2,
 
 def write_tiff(path, arr, tile_size=0, compression="lzw"):
     """Write a grayscale TIFF (stripped, or tiled when tile_size > 0)."""
-    lib = _load()
+    lib = _load_tiff()
     if lib is None:
-        raise RuntimeError("native library unavailable: %r" % _build_err)
+        raise RuntimeError("native TIFF library unavailable: %r" % _tiff_err)
     arr = np.ascontiguousarray(arr)
     if arr.dtype not in _WRITE_DTYPES:
         arr = np.ascontiguousarray(arr, np.float32)

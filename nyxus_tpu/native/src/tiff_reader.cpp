@@ -1,6 +1,6 @@
 // Native tiled/strip grayscale TIFF reader + streaming prescan.
 //
-// TPU-native equivalent of the reference's libtiff loaders
+// This build's equivalent of the reference's libtiff loaders
 // (reference: src/nyx/grayscale_tiff.h NyxusGrayscaleTiffTileLoader /
 // NyxusGrayscaleTiffStripLoader) re-designed as a region server: the Python
 // pipeline asks for arbitrary [y0:y0+h, x0:x0+w) regions (ROI batches, tile

@@ -2,14 +2,22 @@
 // container (byte-shuffle filter; lz4/zlib/memcpy codecs).
 //
 // The reference reads OME-Zarr through z5+blosc (reference: src/nyx/
-// omezarr.h:10-48, CMake gate USE_Z5).  The TPU build keeps chunk decoding
+// omezarr.h:10-48, CMake gate USE_Z5).  This build keeps chunk decoding
 // native but self-contained: numcodecs' default chunk encoding is
 // Blosc(cname='lz4', shuffle=SHUFFLE), whose formats are small and stable.
 
 #include <cstdint>
 #include <cstring>
 #include <vector>
+#if __has_include(<zlib.h>)
 #include <zlib.h>
+#else
+// hosts with the zlib runtime but not its headers: the one call used here
+extern "C" int uncompress(unsigned char* dest, unsigned long* destLen,
+                          const unsigned char* source, unsigned long sourceLen);
+typedef unsigned long uLongf;
+#define Z_OK 0
+#endif
 
 extern "C" {
 
@@ -157,7 +165,7 @@ static void shuffle_bytes(const uint8_t* in, uint8_t* out, int nbytes,
 static int32_t rd32(const uint8_t* p) {
     int32_t v;
     std::memcpy(&v, p, 4);
-    return v;  // little-endian hosts only (x86/TPU VM)
+    return v;  // little-endian hosts only (x86-64)
 }
 
 // returns decompressed byte count or -1

@@ -1,1 +1,1 @@
-"""Batched TPU feature kernels (JAX/XLA/Pallas)."""
+"""Batched feature kernels (JAX/XLA)."""

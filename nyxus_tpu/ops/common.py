@@ -1,7 +1,7 @@
 """Shared batched primitives for feature kernels.
 
-TPU-first building blocks: histogram/bincount as fused one-hot matmuls (MXU),
-masked reductions, sorted-value statistics.  Everything is batched over a
+Building blocks: histogram/bincount as fused one-hot matmuls (at HIGHEST
+precision: no TF32), masked reductions, sorted-value statistics.  Everything is batched over a
 leading ROI axis ``B`` and works on padded, masked tensors with static shapes.
 """
 
@@ -9,21 +9,22 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 
-# one-hot tensors up to this many elements ride the MXU matmul builders;
-# beyond it (large 3D cubes) the scatter fallback keeps memory O(A)
+# one-hot tensors up to this many elements take the matmul builders;
+# beyond it (large 3D cubes) the scatter fallback keeps memory O(A).  The
+# one-hot-vs-scatter choice on the GPU is ROADMAP S4.
 _ONEHOT_ELEM_CAP = 1 << 27
 
 
 def masked_bincount(idx, weights, nbins: int):
     """Batched bincount: out[b, k] = sum_a weights[b, a] * (idx[b, a] == k).
 
-    MXU path: one-hot(idx) contracted with the weights -- one [A, nbins]
-    matvec per batch row.  Falls back to segment_sum when the one-hot would
-    exceed the element cap (XLA's TPU scatter lowering is far slower than a
-    matmul at bucket sizes, but is the only O(A)-memory option for giant
-    inputs).  idx entries outside [0, nbins) contribute nothing.
+    Matmul path: one-hot(idx) contracted with the weights -- one
+    [A, nbins] matvec per batch row.  Falls back to segment_sum when the
+    one-hot would exceed the element cap (the only O(A)-memory option for
+    giant inputs).  idx entries outside [0, nbins) contribute nothing.
 
     idx:     [B, A] int32
     weights: [B, A] float (0 for padding)
@@ -36,7 +37,8 @@ def masked_bincount(idx, weights, nbins: int):
         oh = (jnp.clip(idx, 0, nbins - 1)[..., None]
               == jnp.arange(nbins, dtype=idx.dtype)).astype(weights.dtype)
         return jnp.einsum("bak,ba->bk", oh, w,
-                          preferred_element_type=weights.dtype)
+                          preferred_element_type=weights.dtype,
+                          precision=lax.Precision.HIGHEST)
     rows = jnp.arange(B, dtype=jnp.int32)[:, None]
     flat_idx = (rows * nbins + jnp.clip(idx, 0, nbins - 1)).reshape(-1)
     out = jax.ops.segment_sum(w.reshape(-1), flat_idx, num_segments=B * nbins)
@@ -47,7 +49,7 @@ def bincount2d(i_idx, j_idx, weights, ni: int, nj: int):
     """Batched 2D histogram: out[b, i, j] = sum_a w[b,a] * (i_idx==i) * (j_idx==j).
 
     Implemented as one-hot(i)^T @ (one-hot(j) * w): an [ni, A] x [A, nj]
-    batched matmul -- the canonical MXU-friendly co-occurrence builder.
+    batched matmul -- the matmul form of the co-occurrence builder.
     The weights fold into ONE of the one-hots so XLA emits a plain
     dot_general (the 3-operand einsum form materialized the full
     [B, A, ni, nj] outer product).  Memory is O(A * (ni + nj)): fine for 2D
@@ -56,14 +58,15 @@ def bincount2d(i_idx, j_idx, weights, ni: int, nj: int):
     oi = (i_idx[..., None] == jnp.arange(ni, dtype=i_idx.dtype)).astype(weights.dtype)
     oj = (j_idx[..., None] == jnp.arange(nj, dtype=j_idx.dtype)).astype(weights.dtype)
     return jnp.einsum("bai,baj->bij", oi, oj * weights[..., None],
-                      preferred_element_type=weights.dtype)
+                      preferred_element_type=weights.dtype,
+                      precision=lax.Precision.HIGHEST)
 
 
 def pair_hist(i_idx, j_idx, weights, ni: int, nj: int):
     """2D histogram with a size-adaptive builder.
 
-    Small crops take the one-hot matmul (bincount2d): MXU-friendly, and the
-    one-hots stay tiny.  Large 3D cubes take the composite-index scatter-add:
+    Small crops take the one-hot matmul (bincount2d), where the one-hots
+    stay tiny.  Large 3D cubes take the composite-index scatter-add:
     O(A) memory where the one-hot form would materialize [B, A, ni]
     (VERDICT r1 weak #6 -- 4 GB per direction at 256-cube, 64 levels).
     Entries with either index out of range contribute nothing."""

@@ -10,7 +10,7 @@ Kernel magnitudes are truncated to unsigned int after the convolution
 thresholds operate on the truncated values.
 
 The 2D complex convolution is expressed as a 2-channel lax conv over the
-ROI batch -- XLA maps it onto the MXU.
+ROI batch, at HIGHEST precision (the threshold counts flip under TF32).
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ def _gabor_magnitude(img, kr, ki, n: int):
         x, kf, window_strides=(1, 1),
         padding=[(n - 1, n - 1), (n - 1, n - 1)],
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        preferred_element_type=img.dtype)
+        preferred_element_type=img.dtype,
+        precision=jax.lax.Precision.HIGHEST)
     off = int(math.ceil(n / 2))
     out = out[:, :, off:off + H, off:off + W]
     mag = jnp.sqrt(out[:, 0] ** 2 + out[:, 1] ** 2)

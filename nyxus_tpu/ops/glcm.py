@@ -1,11 +1,12 @@
-"""GLCM (grey-level co-occurrence matrix) features, batched for TPU.
+"""GLCM (grey-level co-occurrence matrix) features, batched over ROIs.
 
 Implements the reference's GLCMFeature semantics
 (reference: src/nyx/features/glcm.cpp:227-1213) as batched tensor algebra:
 
 * co-occurrence counting is a one-hot contraction
   ``M[b,i,j] = sum_p onehot(neighbor)_i * onehot(center)_j * valid_p``
-  -- an [Ng, A] x [A, Ng] matmul per (ROI, angle) that maps onto the MXU
+  -- an [Ng, A] x [A, Ng] matmul per (ROI, angle); one-hot vs scatter on
+  the GPU is ROADMAP S4
 * pairs where either pixel's ORIGINAL intensity is 0 are skipped
   (glcm.cpp:443-449): background exclusion
 * angles {0,45,90,135} with displacement (dx,dy) per glcm.cpp:235-255;
@@ -31,6 +32,7 @@ from __future__ import annotations
 import math
 
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 from . import quant
@@ -132,10 +134,12 @@ def glcm_features_from_matrix(M, ng: int, noval: float, ng_val=None,
         ((ii[:, None] + ii[None, :]).reshape(-1)[:, None]
          == np.arange(2 * ng - 1)[None, :]).astype(np.float64), dt)
     pflat = p.reshape(p.shape[:-2] + (ng * ng,))
-    pxmy = jnp.einsum("bak,kd->bad", pflat, diff_oh,
-                      preferred_element_type=dt)             # [B, A, ng]
-    pxpy = jnp.einsum("bak,ks->bas", pflat, sum_oh,
-                      preferred_element_type=dt)             # [B, A, 2ng-1]
+    pxmy = jnp.einsum("bak,kd->bad", pflat, diff_oh,         # [B, A, ng]
+                      preferred_element_type=dt,
+                      precision=lax.Precision.HIGHEST)
+    pxpy = jnp.einsum("bak,ks->bas", pflat, sum_oh,          # [B, A, 2ng-1]
+                      preferred_element_type=dt,
+                      precision=lax.Precision.HIGHEST)
 
     k = idx                                                  # diff index values
     if kvs is None:
@@ -161,7 +165,8 @@ def glcm_features_from_matrix(M, ng: int, noval: float, ng_val=None,
                      jnp.broadcast_to(valB, p.shape[:2] + (ng,))
                      - mc[..., None],
                      jnp.broadcast_to(valB, p.shape[:2] + (ng,))
-                     - mr[..., None], preferred_element_type=dt)
+                     - mr[..., None], preferred_element_type=dt,
+                     precision=lax.Precision.HIGHEST)
     denom = jnp.sqrt(s2r) * jnp.sqrt(s2c)
     out["GLCM_CORRELATION"] = jnp.where(denom > 0, cov / jnp.where(denom > 0, denom, 1),
                                         jnp.asarray(noval, dt))
@@ -194,7 +199,8 @@ def glcm_features_from_matrix(M, ng: int, noval: float, ng_val=None,
 
     valbc = jnp.broadcast_to(valB, p.shape[:2] + (ng,))
     out["GLCM_ACOR"] = jnp.einsum("baij,bai,baj->ba", p, valbc, valbc,
-                                  preferred_element_type=dt)
+                                  preferred_element_type=dt,
+                                  precision=lax.Precision.HIGHEST)
 
     m_clu = valr + valc - 2.0 * mc[..., None, None]
     out["GLCM_CLUTEND"] = jnp.sum(m_clu ** 2 * p, axis=(-1, -2))
@@ -258,13 +264,15 @@ def radiomics_rank_info(levels, participate, ng: int, dtype):
     oh = ((rank[:, :, None] == rr[None, None, :]) &
           present[:, :, None]).astype(dtype)
     val = jnp.einsum("blr,l->br", oh, jnp.arange(1, ng + 1, dtype=dtype),
-                     preferred_element_type=dtype)
+                     preferred_element_type=dtype,
+                     precision=lax.Precision.HIGHEST)
 
     def take(v, idx):
         """v[b, idx[b, k]] via one-hot matmul (tiny)."""
         ohi = (idx[..., None] == rr[None, None, :]).astype(dtype)
         return jnp.einsum("bkl,bl->bk", ohi, v,
-                          preferred_element_type=dtype)
+                          preferred_element_type=dtype,
+                          precision=lax.Precision.HIGHEST)
 
     ngp_i = ngp.astype(jnp.int32)
     ks = jnp.arange(2 * ng - 1, dtype=jnp.int32)
@@ -288,7 +296,8 @@ def _rank_per_pixel(levels, rank, ng: int, dtype):
     lev0 = jnp.clip(levels.astype(jnp.int32) - 1, 0, ng - 1)
     oh = (lev0[..., None] == jnp.arange(ng, dtype=jnp.int32)).astype(dtype)
     rk = jnp.einsum("b...l,bl->b...", oh, rank.astype(dtype),
-                    preferred_element_type=dtype)
+                    preferred_element_type=dtype,
+                    precision=lax.Precision.HIGHEST)
     return rk.astype(jnp.int32)
 
 

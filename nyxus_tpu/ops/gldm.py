@@ -12,6 +12,7 @@ Background is excluded by ORIGINAL intensity for both center and neighbors
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from .common import NEIGHBORS8, shifted2d, fast_log2
 
@@ -71,10 +72,14 @@ def gldm_features(P, vmin, vmax, noval: float):
     j2 = jval * jval
     out["GLDM_LGLE"] = jnp.sum(si / i2, axis=1) / s
     out["GLDM_HGLE"] = jnp.sum(si * i2, axis=1) / s
-    out["GLDM_SDLGLE"] = jnp.einsum("bij,i,j->b", P, 1 / i2, 1 / j2) / s
-    out["GLDM_SDHGLE"] = jnp.einsum("bij,i,j->b", P, i2, 1 / j2) / s
-    out["GLDM_LDLGLE"] = jnp.einsum("bij,i,j->b", P, 1 / i2, j2) / s
-    out["GLDM_LDHGLE"] = jnp.einsum("bij,i,j->b", P, i2, j2) / s
+    out["GLDM_SDLGLE"] = jnp.einsum("bij,i,j->b", P, 1 / i2, 1 / j2,
+                                    precision=lax.Precision.HIGHEST) / s
+    out["GLDM_SDHGLE"] = jnp.einsum("bij,i,j->b", P, i2, 1 / j2,
+                                    precision=lax.Precision.HIGHEST) / s
+    out["GLDM_LDLGLE"] = jnp.einsum("bij,i,j->b", P, 1 / i2, j2,
+                                    precision=lax.Precision.HIGHEST) / s
+    out["GLDM_LDHGLE"] = jnp.einsum("bij,i,j->b", P, i2, j2,
+                                    precision=lax.Precision.HIGHEST) / s
 
     bad = (vmin == vmax) | (nz == 0)
     nv = jnp.asarray(noval, dtype)

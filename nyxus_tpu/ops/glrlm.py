@@ -1,4 +1,4 @@
-"""GLRLM (grey-level run-length matrix) features, batched for TPU.
+"""GLRLM (grey-level run-length matrix) features, batched over ROIs.
 
 Reproduces the reference's GLRLMFeature (reference:
 src/nyx/features/glrlm.cpp:40-760): maximal same-level runs along the four
@@ -14,7 +14,7 @@ Faithful behavior notes:
 * empty matrix at an angle -> that angle's features are 0.0 (not NAN)
   (glrlm.cpp calc_*: `if (sum_p[ai] == 0) af.push_back(0.0)`)
 
-TPU design: run detection is vectorized — run ends located with a reverse
+Design: run detection is vectorized — run ends located with a reverse
 cumulative min over "level changes here" flags, run lengths read at run
 starts, then the (level, length) histogram is a one-hot matmul.  Diagonal
 directions are handled by shearing rows so diagonals become columns.
@@ -69,10 +69,10 @@ def _shear(arr, fill, anti: bool):
     Returns [B, H, W + H - 1].
 
     Implemented as pad + flat re-view (row y of a width-(K-1) view of a
-    width-K buffer starts one column later per row): pure layout ops.  The
-    earlier take_along_axis gather cost ~4.6 GB of HBM traffic per call on
-    TPU (XLA's general-gather lowering); this form costs one copy.  Only
-    fill == 0 is supported (the pad supplies the zeros)."""
+    width-K buffer starts one column later per row): pure layout ops that
+    replaced a take_along_axis gather; whether the gather is cheaper on the
+    GPU is ROADMAP S4.  Only fill == 0 is supported (the pad supplies the
+    zeros)."""
     assert fill == 0
     B, H, W = arr.shape
     if not anti:
@@ -142,10 +142,14 @@ def glrlm_features(P, n_pixels, vmin, vmax, noval: float, dtype):
     j2 = jval * jval
     out["GLRLM_LGLRE"] = jnp.sum(ri * inv_i2, axis=-1) / s
     out["GLRLM_HGLRE"] = jnp.sum(ri * i2, axis=-1) / s
-    out["GLRLM_SRLGLE"] = jnp.einsum("baij,i,j->ba", P, inv_i2, inv_j2) / s
-    out["GLRLM_SRHGLE"] = jnp.einsum("baij,i,j->ba", P, i2, inv_j2) / s
-    out["GLRLM_LRLGLE"] = jnp.einsum("baij,i,j->ba", P, inv_i2, j2) / s
-    out["GLRLM_LRHGLE"] = jnp.einsum("baij,i,j->ba", P, i2, j2) / s
+    out["GLRLM_SRLGLE"] = jnp.einsum("baij,i,j->ba", P, inv_i2, inv_j2,
+                                     precision=lax.Precision.HIGHEST) / s
+    out["GLRLM_SRHGLE"] = jnp.einsum("baij,i,j->ba", P, i2, inv_j2,
+                                     precision=lax.Precision.HIGHEST) / s
+    out["GLRLM_LRLGLE"] = jnp.einsum("baij,i,j->ba", P, inv_i2, j2,
+                                     precision=lax.Precision.HIGHEST) / s
+    out["GLRLM_LRHGLE"] = jnp.einsum("baij,i,j->ba", P, i2, j2,
+                                     precision=lax.Precision.HIGHEST) / s
 
     zero = jnp.asarray(0.0, dtype)
     for m in MEMBERS:

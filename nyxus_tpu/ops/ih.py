@@ -1,7 +1,7 @@
 """IBSI Intensity Histogram (IH) family -- 46 features from one N-bin
 histogram per ROI.
 
-Batched TPU implementation of the reference's ``IntensityHistogramFeatures``
+Batched implementation of the reference's ``IntensityHistogramFeatures``
 (reference: src/nyx/features/intensity_histogram.cpp:31-305).
 
 Semantics reproduced exactly:

@@ -1,6 +1,6 @@
 """First-order pixel-intensity features + per-ROI intensity histogram.
 
-Batched TPU implementation of the reference's ``PixelIntensityFeatures``
+Batched implementation of the reference's ``PixelIntensityFeatures``
 (reference: src/nyx/features/intensity.cpp:57-233) and its histogram engine
 ``TrivialHistogram`` (src/nyx/features/histogram.h:23-205,300-327).
 

@@ -1,6 +1,6 @@
 """2D geometric moments (intensity + shape): raw/central/normalized/Hu and
 their distance-to-contour weighted variants.  Batched; the moment sums are
-separable polynomial contractions that map onto the MXU.
+separable polynomial contractions.
 
 Reference: src/nyx/features/2d_geomoments_basic.cpp:69-380, 2d_geomoments.h.
 Coordinates are AABB-local (x - xmin, y - ymin); weighted intensities are

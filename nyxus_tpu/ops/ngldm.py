@@ -11,6 +11,7 @@ count = j + 1).  19 scalar statistics; DCP == 1 by IBSI definition.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from .common import NEIGHBORS8, shifted2d
 
@@ -75,26 +76,34 @@ def ngldm_features_from_matrix(P, vmin, vmax, noval: float, dtype):
     out["NGLDM_LGLCE"] = jnp.sum(jnp.where(gnz, sg / g2, 0), axis=1) / s
     out["NGLDM_HGLCE"] = jnp.sum(sg * gval * gval, axis=1) / s
     out["NGLDM_LDLGLE"] = jnp.einsum("bij,i,j->b", P, jnp.where(gnz, 1 / g2, 0),
-                                     1 / (dval * dval)) / s
+                                     1 / (dval * dval),
+                                     precision=lax.Precision.HIGHEST) / s
     out["NGLDM_LDHGLE"] = jnp.einsum("bij,i,j->b", P, gval * gval,
-                                     1 / (dval * dval)) / s
+                                     1 / (dval * dval),
+                                     precision=lax.Precision.HIGHEST) / s
     out["NGLDM_HDLGLE"] = jnp.einsum("bij,i,j->b", P, jnp.where(gnz, 1 / g2, 0),
-                                     dval * dval) / s
+                                     dval * dval,
+                                     precision=lax.Precision.HIGHEST) / s
     out["NGLDM_HDHGLE"] = jnp.einsum("bij,i,j->b", P, gval * gval,
-                                     dval * dval) / s
+                                     dval * dval,
+                                     precision=lax.Precision.HIGHEST) / s
     out["NGLDM_GLNU"] = jnp.sum(sg * sg, axis=1) / s
     out["NGLDM_GLNUN"] = jnp.sum(sg * sg, axis=1) / (s * s)
     out["NGLDM_DCNU"] = jnp.sum(sr * sr, axis=1) / s
     out["NGLDM_DCNUN"] = jnp.sum(sr * sr, axis=1) / (s * s)
     out["NGLDM_DCP"] = jnp.ones_like(ns)
-    glm = jnp.einsum("bij,i->b", p, gval)
+    glm = jnp.einsum("bij,i->b", p, gval,
+                     precision=lax.Precision.HIGHEST)
     out["NGLDM_GLM"] = glm
-    dcm = jnp.einsum("bij,j->b", p, dval)
+    dcm = jnp.einsum("bij,j->b", p, dval,
+                     precision=lax.Precision.HIGHEST)
     out["NGLDM_DCM"] = dcm
     out["NGLDM_GLV"] = jnp.einsum("bij,bi->b", p,
-                                  (gval[None] - glm[:, None]) ** 2)
+                                  (gval[None] - glm[:, None]) ** 2,
+                                  precision=lax.Precision.HIGHEST)
     out["NGLDM_DCV"] = jnp.einsum("bij,bj->b", p,
-                                  (dval[None] - dcm[:, None]) ** 2)
+                                  (dval[None] - dcm[:, None]) ** 2,
+                                  precision=lax.Precision.HIGHEST)
     out["NGLDM_DCENT"] = -jnp.sum(jnp.where(p > 0, p * jnp.log2(jnp.where(p > 0, p, 1)), 0),
                                   axis=(1, 2))
     out["NGLDM_DCENE"] = jnp.sum(p * p, axis=(1, 2))

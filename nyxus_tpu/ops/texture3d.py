@@ -471,25 +471,33 @@ def ngldm3d_from_matrix(P, present, vmin, vmax, noval, dtype):
     out["NGLDM_LGLCE"] = jnp.sum(jnp.where(gnz, sg / g2, 0), axis=1) / s
     out["NGLDM_HGLCE"] = jnp.sum(sg * gval * gval, axis=1) / s
     out["NGLDM_LDLGLE"] = jnp.einsum("bij,i,j->b", Pj,
-                                     jnp.where(gnz, 1 / g2, 0), 1 / j2) / s
-    out["NGLDM_LDHGLE"] = jnp.einsum("bij,i,j->b", Pj, gval * gval, 1 / k2) / s
+                                     jnp.where(gnz, 1 / g2, 0), 1 / j2,
+                                     precision=lax.Precision.HIGHEST) / s
+    out["NGLDM_LDHGLE"] = jnp.einsum("bij,i,j->b", Pj, gval * gval, 1 / k2,
+                                     precision=lax.Precision.HIGHEST) / s
     out["NGLDM_HDLGLE"] = jnp.einsum("bij,i,j->b", Pj,
-                                     jnp.where(gnz, 1 / g2, 0), k2) / s
-    out["NGLDM_HDHGLE"] = jnp.einsum("bij,i,j->b", Pj, gval * gval, k2) / s
+                                     jnp.where(gnz, 1 / g2, 0), k2,
+                                     precision=lax.Precision.HIGHEST) / s
+    out["NGLDM_HDHGLE"] = jnp.einsum("bij,i,j->b", Pj, gval * gval, k2,
+                                     precision=lax.Precision.HIGHEST) / s
     glnu = jnp.sum(sg * sg, axis=1)
     out["NGLDM_GLNU"] = glnu / s
     out["NGLDM_GLNUN"] = glnu / (s * s)
     out["NGLDM_DCNU"] = glnu / s                # faithful: 3d_ngldm.cpp:308-325
     out["NGLDM_DCNUN"] = glnu / (s * s)
     out["NGLDM_DCP"] = jnp.ones_like(ns)
-    glm = jnp.einsum("bij,i->b", p, gval)
+    glm = jnp.einsum("bij,i->b", p, gval,
+                     precision=lax.Precision.HIGHEST)
     out["NGLDM_GLM"] = glm
-    dcm = jnp.einsum("bij,j->b", p, kval)
+    dcm = jnp.einsum("bij,j->b", p, kval,
+                     precision=lax.Precision.HIGHEST)
     out["NGLDM_DCM"] = dcm
     out["NGLDM_GLV"] = jnp.einsum("bij,bi->b", p,
-                                  (ordinal - glm[:, None]) ** 2)
+                                  (ordinal - glm[:, None]) ** 2,
+                                  precision=lax.Precision.HIGHEST)
     out["NGLDM_DCV"] = jnp.einsum("bij,bj->b", p,
-                                  (kval[None] - dcm[:, None]) ** 2)
+                                  (kval[None] - dcm[:, None]) ** 2,
+                                  precision=lax.Precision.HIGHEST)
     out["NGLDM_DCENT"] = -jnp.sum(
         jnp.where(p > 0, p * jnp.log2(jnp.where(p > 0, p, 1)), 0), axis=(1, 2))
     out["NGLDM_DCENE"] = jnp.sum(p * p, axis=(1, 2))

@@ -139,8 +139,8 @@ def zone_labels_cc4(lev, valid):
 
 def zone_list(anc, lev, valid, dist=None):
     """Per-zone (level, size[, min dist]) lists via ONE sort -- no segment
-    ops or gathers (XLA's TPU scatter/gather lowerings dominate the zone
-    families' cost; a [B, A] sort plus scans is far cheaper).
+    ops or gathers (a [B, A] sort plus scans replaced scatter/gather group
+    sums; which is cheaper on the GPU is ROADMAP S4).
 
     anc: [B, ...] zone labels (seed raster index; >= prod(spatial) invalid);
     lev: [B, ...] levels; valid: participation mask; dist (optional):
@@ -209,11 +209,11 @@ def grouped_weight_sums(keys, w):
     Returns (sorted_keys, sorted_w, group_sums, valid) aligned with the
     sorted order.
 
-    Gather-free on purpose: XLA's TPU gather lowering runs ~10 Melem/s,
-    and the former argsort + take_along_axis formulation was the single
-    hottest device cost of the whole *ALL* megakernel (~170 ms of a
-    ~205 ms slide program).  lax.sort carries the payload through the
-    sort, and the group sums come from segmented scans: a within-segment
+    Gather-free on purpose: the former argsort + take_along_axis
+    formulation was the hottest device cost of the *ALL* slide program on
+    the previous accelerator; the GPU's trade-off is ROADMAP S4.  lax.sort
+    carries the payload through the sort, and the group sums come from
+    segmented scans: a within-segment
     cumsum followed by a reverse segmented max (valid because w >= 0
     makes the segment cumsum nondecreasing)."""
     B, A = keys.shape

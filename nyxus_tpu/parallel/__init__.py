@@ -2,17 +2,17 @@
 
 The reference is single-process, single-node (SURVEY §2.11: its only
 parallelism is std::async over ROI ranges, parallel.h:23-42, plus optional
-single-GPU offload).  This package is the net-new distributed layer of the
-TPU build:
+single-GPU offload).  This package is the net-new distributed layer of this
+build:
 
-* intra-slice (ICI): the padded ROI batch axis is sharded over a 1-D
+* intra-slice (device mesh): the padded ROI batch axis is sharded over a 1-D
   ``("roi",)`` device mesh.  Feature kernels are embarrassingly parallel over
   ROIs, so computation-follows-data under ``jit`` — XLA's SPMD partitioner
   emits no collectives on the hot path; the per-batch packed output is
   gathered once at collection time.
-* inter-host (DCN): the slide/pair list is sharded by JAX process index —
-  each host drives its own local devices over its own slides (the TPU
-  equivalent of the reference's slide-level std::async fan-out,
+* inter-host: the slide/pair list is sharded by JAX process index — each
+  host drives its own local devices over its own slides (the counterpart
+  of the reference's slide-level std::async fan-out,
   workflow_2d_whole.cpp:292-330).
 """
 

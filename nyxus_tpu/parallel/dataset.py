@@ -1,7 +1,7 @@
-"""Inter-host dataset sharding (DCN level).
+"""Inter-host dataset sharding.
 
 The reference fans whole slides out over threads of one process
-(workflow_2d_whole.cpp:292-330).  Multi-host TPU systems instead run one
+(workflow_2d_whole.cpp:292-330).  Multi-host systems instead run one
 process per host: shard the (intensity, mask) pair list by process index so
 each host featurizes a disjoint slide subset with its own local devices.
 Outputs compose trivially — each host writes its own per-slide rows (CSV /

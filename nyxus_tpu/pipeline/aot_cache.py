@@ -1,9 +1,9 @@
 """Opt-in ahead-of-time program cache: skip megakernel re-tracing.
 
 jax's persistent compilation cache only serves the BACKEND compile; the
-Python trace + StableHLO lowering of the `*ALL*` megakernel (~18 s on this
-host) repeats in every fresh process, which is why the warm-cache first run
-stays ~20 s (COMPILE_TIMES.json).  With ``NYXUS_TPU_AOT_CACHE=<dir>`` the
+Python trace + StableHLO lowering of the `*ALL*` megakernel repeats in
+every fresh process (its cost on the GPU host is not measured yet; ROADMAP
+S7, D3).  With ``NYXUS_TPU_AOT_CACHE=<dir>`` the
 serialized ``jax.export`` artifact of each (feature set, config, input
 signature) is kept on disk:
 
@@ -13,15 +13,15 @@ signature) is kept on disk:
 * a FRESH process deserializes the artifact in milliseconds and dispatches
   its first slides through ``Exported.call`` (no tracing), while one
   background thread warms the regular jit path, which then takes over
-  (``Exported.call`` costs ~30 ms per dispatch vs the jit path's ~0.3 ms,
-  so it only serves until the warm-up lands).
+  (``Exported.call`` dispatches more slowly than the jit path, so it only
+  serves until the warm-up lands).
 
 The cache key covers the family set, engine config, static metadata, input
 shapes/dtypes, jax version, backend and the x64 flag, so a stale artifact
 can never serve a different program.  Everything degrades to the plain jit
 path on any error.  The reference has no analog: its C++ calculators cost
 no per-process compilation (nyxus keeps per-feature ``calculate`` methods,
-featureset.h); this recovers that cold-start property for the fused TPU
+featureset.h); this recovers that cold-start property for the fused
 program.
 """
 

@@ -1,7 +1,7 @@
 """ROI bucketing: group ragged ROIs into a bounded set of padded batch shapes.
 
 The reference packs ROIs into RAM-budget batches and processes each ROI alone
-inside a thread (reference: phase2_2d.cpp:501-633).  The TPU design instead
+inside a thread (reference: phase2_2d.cpp:501-633).  This design instead
 pads each ROI's AABB up to a small set of bucket shapes so every feature
 family runs as one batched kernel per bucket -- few distinct compiled shapes,
 bounded padding waste (<= ~4x area in the worst case, typically ~1.6x).
@@ -27,8 +27,8 @@ def pad_dim(n: int) -> int:
 def bucket_shape(h: int, w: int):
     """Square buckets for small ROIs (max dim <= 256): halves the number of
     distinct compiled shapes and device dispatches for nucleus-scale
-    workloads, and the padding waste is negligible next to the TPU's
-    8x128 vector lanes.  Elongated large ROIs keep rectangular buckets."""
+    workloads, at a padding cost that ROADMAP D2 puts to a GPU A/B.
+    Elongated large ROIs keep rectangular buckets."""
     if max(h, w) <= 256:
         d = pad_dim(max(h, w))
         return (d, d)

@@ -2,7 +2,7 @@
 
 The reference runs every texture feature's ``osized_calculate`` over
 file-backed pixel clouds (reference: src/nyx/phase3.cpp:94-114,
-features/image_matrix_nontriv.h:9-72).  The TPU-native equivalent streams
+features/image_matrix_nontriv.h:9-72).  This build's equivalent streams
 the ROI's AABB once (twice for GLDZM) in full-width row strips, accumulating
 exactly the small sufficient statistics each family's FEATURE math needs --
 co-occurrence / run / zone / dependence matrices -- then reuses the SAME

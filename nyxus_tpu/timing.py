@@ -7,7 +7,7 @@ supports exclusive/inclusive accounting, prints a summary, and saves
 dump at workflow_2d_segmented.cpp:369-394; verbosity macros VERBOSLVL1..5,
 environment.h:280-284).
 
-TPU-build equivalents:
+This build's equivalents:
 * ``Stopwatch`` -- process-wide accumulator; ``stopwatch("Name/#color")``
   context manager; nesting tracked so exclusive mode subtracts child time
 * enablement via ``NYXUS_TIMING=1`` or ``Stopwatch.enable()`` (always-on

@@ -1,38 +1,40 @@
 """Build hook: compile the native runtime into the wheel.
 
-The package works from a plain source checkout too (nyxus_tpu.native JIT-
-compiles on first use and degrades to pure-Python readers without a
-toolchain); this hook just pre-bakes ``libnyxnative.so`` so wheel installs
-never need g++ (reference analog: the CMake + setup.py + cibuildwheel stack,
+The package works from a plain source checkout too (nyxus_tpu.native
+compiles on first use); this hook pre-bakes the libraries of
+``nyxus_tpu.native._LIBS`` for the build host.  A library whose host stamp
+does not match the CPU that loads it is rebuilt there on first use
+(reference analog: the CMake + setup.py + cibuildwheel stack,
 /root/reference/CMakeLists.txt:425-442, setup.py)."""
 
+import importlib.util
 import os
-import subprocess
 
 from setuptools import setup
 from setuptools.command.build_py import build_py
 
 
+def _native_module():
+    # load the build helpers without importing the package (and JAX)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nyxus_tpu", "native", "__init__.py")
+    spec = importlib.util.spec_from_file_location("_nyx_native_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 class BuildWithNative(build_py):
     def run(self):
         super().run()
-        src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "nyxus_tpu", "native", "src")
-        sources = [os.path.join(src, s) for s in
-                   ("tiff_reader.cpp", "csv_writer.cpp", "zarr_codec.cpp",
-                    "contour.cpp", "geomfeats.cpp")]
+        native = _native_module()
         out_dir = os.path.join(self.build_lib, "nyxus_tpu", "native",
                                "_build")
-        os.makedirs(out_dir, exist_ok=True)
-        out = os.path.join(out_dir, "libnyxnative.so")
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", out,
-               *sources, "-ltiff"]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=600)
-            print("built", out)
-        except Exception as e:  # pure-Python wheel still works
-            print("WARNING: native build skipped (%s); the package will "
-                  "JIT-compile or fall back to pure-Python readers" % e)
+        for name in native._LIBS:
+            try:
+                print("built", native.build(name, out_dir))
+            except RuntimeError as e:  # e.g. no libtiff: built on first use
+                print("WARNING: native build of %s skipped (%s)" % (name, e))
 
 
 setup(cmdclass={"build_py": BuildWithNative})

@@ -21,19 +21,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
 from nyxus_tpu import columns as col  # noqa: E402
+from nyxus_tpu import parity  # noqa: E402
 from nyxus_tpu import taxonomy as tx  # noqa: E402
 from nyxus_tpu.config import EngineConfig  # noqa: E402
 from nyxus_tpu.pipeline.runner import PairRunner  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
-from test_reference_parity import FAMILY_TOL, LOOSE  # noqa: E402
+from nyxus_tpu.parity import LOOSE, REF_TOL, ZERO_BY_CONSTRUCTION  # noqa: E402
 
 # full fixture sweeps: heavy; the quick per-commit tier deselects these
 import pytest as _pt
 pytestmark = _pt.mark.nightly
-
-DEFAULT_TOL = 1e-4
 
 # Families whose radiomics-binning behavior in the reference binary is a
 # DEFECT, not a semantic (verified in source):
@@ -65,7 +64,7 @@ def _compare(ref, ours, min_checked, skip_prefixes=()):
     failures = []
     checked = 0
     for c in ours.columns:
-        if c not in ref.columns or c in FAMILY_TOL:
+        if c not in ref.columns or c in ZERO_BY_CONSTRUCTION:
             continue
         if c.startswith(skip_prefixes):
             continue
@@ -77,7 +76,7 @@ def _compare(ref, ours, min_checked, skip_prefixes=()):
         denom = np.maximum(np.abs(b[both]), 1e-6)
         rel = np.abs(a[both] - b[both]) / denom
         p90 = float(np.quantile(rel, 0.9))
-        tol = LOOSE.get(c, DEFAULT_TOL)
+        tol = LOOSE.get(c, REF_TOL)
         checked += 1
         if p90 > tol:
             failures.append((c, round(p90, 6)))
@@ -108,13 +107,12 @@ def test_3d_reference_binary_parity():
     (NIfTI volume pair, --dim=3) -- the first binary-pinned 3D config
     (previous 3D oracles: pyradiomics goldens + invariants).  Fixture via
     tools/gen_config_fixtures.gen_3d."""
-    from tests.test_oversized import _blob3d
     from nyxus_tpu.pipeline.runner3d import VolumeRunner
 
     ref = pd.read_csv(gzip.open(
         os.path.join(DATA, "ref_3d_48x56x60_seed4.csv.gz"), "rt"))
     ref = ref.sort_values("ROI_label").set_index("ROI_label")
-    intens, labels = _blob3d(seed=4, shape=(48, 56, 60))
+    intens, labels = bench.make_blob_volume(seed=4, shape=(48, 56, 60))
     intens = (intens % 59 + 1).astype(np.uint16)
     fset = tx.parse_feature_request(["*3D_ALL*"], dim=3)
     runner = VolumeRunner(fset, EngineConfig(precision="f64"))
@@ -133,24 +131,9 @@ def test_3d_reference_binary_parity():
     #   emits 0.0 for all five 3NGTDM members
     # * 3d_ngldm.cpp:12-40's shift table has only 24 neighbors (the axial
     #   (0,0,+-1) pair is absent, unlike 3d_gldm.cpp:16-48)
-    failures = []
-    checked = 0
-    for c in ours.columns:
-        if c not in ref.columns:
-            continue
-        a = ours[c].to_numpy(float)
-        b = ref[c].to_numpy(float)
-        both = np.isfinite(a) & np.isfinite(b)
-        if both.sum() == 0:
-            continue
-        denom = np.maximum(np.abs(b[both]), 1e-6)
-        rel = np.abs(a[both] - b[both]) / denom
-        p90 = float(np.quantile(rel, 0.9))
-        checked += 1
-        if p90 > DEFAULT_TOL:
-            failures.append((c, round(p90, 6)))
-    assert checked > 200, checked
-    assert not failures, failures[:40]
+    res = parity.compare_reference(ours, ref, denom_floor=1e-6)
+    assert res.checked > 200, res.checked
+    assert res.ok, res.failures[:40]
 
 
 def test_hu_mode_parity():
@@ -186,13 +169,12 @@ def test_3d_aniso_reference_binary_parity():
     """*3D_ALL* with --anisox=1.4 --anisoy=1.2 --anisoz=1.5 vs the
     reference binary (fixture tools/gen_config_fixtures.gen_3d_aniso) --
     the vetting matrix's 3D aniso column."""
-    from tests.test_oversized import _blob3d
     from nyxus_tpu.pipeline.runner3d import VolumeRunner
 
     ref = pd.read_csv(gzip.open(
         os.path.join(DATA, "ref_3d_aniso_48x56x60_seed4.csv.gz"), "rt"))
     ref = ref.sort_values("ROI_label").set_index("ROI_label")
-    intens, labels = _blob3d(seed=4, shape=(48, 56, 60))
+    intens, labels = bench.make_blob_volume(seed=4, shape=(48, 56, 60))
     intens = (intens % 59 + 1).astype(np.uint16)
     cfg = EngineConfig(precision="f64",
                        aniso_x=float(np.float32(1.4)),
@@ -230,13 +212,12 @@ def test_3d_wholevolume_reference_binary_parity():
     NGLDM's unclamped to_grayscale then produces levels beyond the nominal
     grey depth (helpers.h:337, 3d_ngldm.cpp:123-166), which the engine's
     matrices must keep as distinct rows."""
-    from tests.test_oversized import _blob3d
     from nyxus_tpu.pipeline.runner3d import VolumeRunner
 
     ref = pd.read_csv(gzip.open(
         os.path.join(DATA, "ref_3d_whole_48x56x60_seed4.csv.gz"), "rt"))
     ref = ref.sort_values("ROI_label").set_index("ROI_label")
-    intens, _ = _blob3d(seed=4, shape=(48, 56, 60))
+    intens, _ = bench.make_blob_volume(seed=4, shape=(48, 56, 60))
     intens = (intens % 59 + 1).astype(np.uint16)
     fset = tx.parse_feature_request(
         ["*3D_ALL_MORPHOLOGY*", "*3D_GLCM*", "*3D_GLDM*", "*3D_GLDZM*",
@@ -255,13 +236,12 @@ def test_3d_ibsi_reference_binary_parity():
     """*3D_ALL* under --ibsi=true vs the reference binary (fixture
     tools/gen_config_fixtures.gen_3d_ibsi) -- the vetting matrix's 3D ibsi
     column."""
-    from tests.test_oversized import _blob3d
     from nyxus_tpu.pipeline.runner3d import VolumeRunner
 
     ref = pd.read_csv(gzip.open(
         os.path.join(DATA, "ref_3d_ibsi_48x56x60_seed4.csv.gz"), "rt"))
     ref = ref.sort_values("ROI_label").set_index("ROI_label")
-    intens, labels = _blob3d(seed=4, shape=(48, 56, 60))
+    intens, labels = bench.make_blob_volume(seed=4, shape=(48, 56, 60))
     intens = (intens % 59 + 1).astype(np.uint16)
     cfg = EngineConfig(precision="f64", ibsi=True)
     fset = tx.parse_feature_request(["*3D_ALL*"], dim=3, ibsi=True)
@@ -280,13 +260,12 @@ def test_3d_hu_reference_binary_parity():
     3D hu column.  Unlike the CLI float-TIFF path (see test_hu_mode_parity),
     the NIfTI loader applies the documented floored-slide-min offset, which
     this engine's prep mirrors."""
-    from tests.test_oversized import _blob3d
     from nyxus_tpu.pipeline.runner3d import VolumeRunner
 
     ref = pd.read_csv(gzip.open(
         os.path.join(DATA, "ref_3d_hu_48x56x60_seed4.csv.gz"), "rt"))
     ref = ref.sort_values("ROI_label").set_index("ROI_label")
-    intens, labels = _blob3d(seed=4, shape=(48, 56, 60))
+    intens, labels = bench.make_blob_volume(seed=4, shape=(48, 56, 60))
     hu = ((intens.astype(np.int64) % 59) * 30 - 900).astype(np.int16)
     off = np.floor(hu.min())
     I = np.maximum(np.round(hu - off), 0).astype(np.uint16)

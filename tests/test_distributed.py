@@ -45,7 +45,7 @@ print("shard", %(pid)d, "rows", len(df))
 
 def test_two_process_distributed_directory(tmp_path):
     from nyxus_tpu import Nyxus, native
-    if not native.available():
+    if not native.tiff_available():
         pytest.skip("native toolchain unavailable")
     intd = tmp_path / "int"
     segd = tmp_path / "seg"

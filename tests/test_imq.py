@@ -130,7 +130,7 @@ def test_imagequality_file_surface(tmp_path):
     nyxus.py ImageQuality.featurize_directory/featurize_files): a
     directory run without masks = whole-image quality per slide."""
     from nyxus_tpu import native
-    if not native.available():
+    if not native.tiff_available():
         pytest.skip("native toolchain unavailable")
     from nyxus_tpu.api import ImageQuality
     r = np.random.default_rng(3)

@@ -77,7 +77,7 @@ def test_montage_api_dataframe(blob_pair):
 
 
 def test_f32_precision_close(blob_pair):
-    """The TPU-path f32 kernels agree with f64 within loose tolerance."""
+    """The production f32 kernels agree with f64 within loose tolerance."""
     intens, labels = blob_pair
     fset = tx.parse_feature_request(["*ALL_INTENSITY*"])
     r64 = PairRunner(fset, EngineConfig(precision="f64"))

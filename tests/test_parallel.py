@@ -110,8 +110,6 @@ def test_mesh_parity_3d(blob_volume, tmp_path):
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
         "jax.config.update('jax_enable_x64', True)\n"
-        "jax.config.update('jax_compilation_cache_dir', %r)\n"
-        "jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.2)\n"
         "import numpy as np\n"
         "from nyxus_tpu.api import Nyxus3D\n"
         "I = np.load(%r); L = np.load(%r)\n"
@@ -122,8 +120,7 @@ def test_mesh_parity_3d(blob_volume, tmp_path):
         "v8 = d8[d8.columns[4:]].to_numpy(float)\n"
         "np.testing.assert_allclose(v1, v8, rtol=1e-12, atol=1e-12)\n"
         "print('3d mesh parity ok')\n"
-    ) % (root, os.path.join(root, ".jax_cache"),
-         str(tmp_path / "I.npy"), str(tmp_path / "L.npy"))
+    ) % (root, str(tmp_path / "I.npy"), str(tmp_path / "L.npy"))
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
     p = subprocess.run([sys.executable, "-c", script], env=env,
@@ -164,7 +161,7 @@ def test_two_process_directory_shard(tmp_path):
 
     import pandas as pd
     from nyxus_tpu import native
-    if not native.available():
+    if not native.tiff_available():
         import pytest
         pytest.skip("native toolchain unavailable")
     r = np.random.default_rng(3)
@@ -188,12 +185,10 @@ def test_two_process_directory_shard(tmp_path):
         script = (
             "import sys; sys.path.insert(0, %r)\n"
             "import jax; jax.config.update('jax_platforms', 'cpu')\n"
-            "jax.config.update('jax_compilation_cache_dir', %r)\n"
             "from nyxus_tpu import Nyxus\n"
             "df = Nyxus(['MEAN'], shard_slides=True).featurize_directory(%r, %r)\n"
             "df.to_csv(%r, index=False)\n"
-        ) % (root, os.path.join(root, ".jax_cache"), str(int_dir),
-             str(seg_dir), str(out))
+        ) % (root, str(int_dir), str(seg_dir), str(out))
         env = dict(os.environ)
         env["NYXUS_PROCESS_INDEX"] = str(pid)
         env["NYXUS_PROCESS_COUNT"] = "2"

@@ -22,6 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
 from nyxus_tpu import columns as col  # noqa: E402
+from nyxus_tpu import parity  # noqa: E402
 from nyxus_tpu import taxonomy as tx  # noqa: E402
 from nyxus_tpu.config import EngineConfig  # noqa: E402
 from nyxus_tpu.pipeline.runner import PairRunner  # noqa: E402
@@ -29,32 +30,9 @@ from nyxus_tpu.pipeline.runner import PairRunner  # noqa: E402
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "ref_all_320x320_seed11.csv.gz")
 
-# Default relative tolerance on the 90th percentile of per-ROI relative
-# errors.  Families with looser tiers carry a reason.
-DEFAULT_TOL = 1e-4
-FAMILY_TOL = {
-    # first central moments are ~0 by construction on both sides: pure FP
-    # residue, compared by absolute size instead (see test body)
-    "CENTRAL_MOMENT_01": None, "CENTRAL_MOMENT_10": None,
-    "IMOM_CM_01": None, "IMOM_CM_10": None,
-    # interpreted from a 16-bit CSV print (6 significant digits)
-}
-# columns where the reference prints few digits and values span magnitudes;
-# compare at print precision
-PRINT_PRECISION_TOL = 2e-5
-
-# Known remaining divergences (documented, tracked)
-LOOSE = {
-    # The reference's IMEA-inspired enclosing-circle scan (circle.cpp:145-216)
-    # accepts circles from near-singular point triples (|det| just above its
-    # 1e-4 epsilon in float32), inflating the diameter far beyond the point
-    # set on ~1/3 of ROIs (e.g. a 48px circle for a 12px blob).  Which ROIs
-    # inflate depends on its exact contour traversal order, which we could
-    # not reproduce from outside the binary.  Our port implements the same
-    # algorithm and agrees on the ROIs where the reference's scan stays
-    # regular.
-    "DIAMETER_MIN_ENCLOSING_CIRCLE": 5.0,
-}
+# The tiers (p90 relative error <= parity.REF_TOL, the documented LOOSE
+# exceptions, absolute bounds for zero-by-construction moments) live in
+# nyxus_tpu.parity, shared with chip_smoke.py.
 
 
 @pytest.fixture(scope="module")
@@ -82,24 +60,19 @@ def test_row_and_column_sets(frames):
 
 def test_column_values(frames):
     ref, ours = frames
-    common = [c for c in ours.columns if c in ref.columns]
-    failures = []
-    for c in common:
-        a = ours[c].to_numpy(float)
-        b = ref[c].to_numpy(float)
-        both = np.isfinite(a) & np.isfinite(b)
-        if both.sum() == 0:
-            continue
-        if c in FAMILY_TOL and FAMILY_TOL[c] is None:
-            # both sides ~0: bound by absolute size only
-            if np.abs(a[both]).max() > 1e-3:
-                failures.append((c, "abs", float(np.abs(a[both]).max())))
-            continue
-        denom = np.maximum(np.abs(b[both]), 1e-8)
-        rel = np.abs(a[both] - b[both]) / denom
-        p90 = float(np.quantile(rel, 0.9))
-        tol = LOOSE.get(c, max(DEFAULT_TOL, PRINT_PRECISION_TOL))
-        if p90 > tol:
-            failures.append((c, "p90", p90))
-    assert not failures, ("columns beyond tolerance vs the reference "
-                          "binary: %r" % failures[:25])
+    res = parity.compare_reference(ours, ref)
+    assert res.checked > 600, res.checked
+    assert res.ok, ("columns beyond tolerance vs the reference binary: %r"
+                    % res.failures[:25])
+
+
+def test_chip_smoke_phase_a_comparison(frames):
+    """chip_smoke.py's phase-a check, called on this CPU f64 run: the same
+    fixture, ROI order and tiers pass here as they must on the card."""
+    import chip_smoke
+    _, ours = frames
+    res = chip_smoke.compare_2d_reference(ours)
+    assert res.ok, res.failures[:25]
+    assert res.checked > 600, res.checked
+    col_name, err, tol = res.worst
+    assert err <= tol

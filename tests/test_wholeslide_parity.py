@@ -61,7 +61,7 @@ TOL = 2e-4
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
     from nyxus_tpu import Nyxus, native
-    if not native.available():
+    if not native.tiff_available():
         pytest.skip("native toolchain unavailable")
     base = tmp_path_factory.mktemp("ws")
     intens, _ = bench.make_dsb_like(h=320, w=320, n_blobs=40, seed=11)

@@ -51,7 +51,7 @@ TESTS = os.path.join(os.path.dirname(os.path.dirname(
 # sections run default/ibsi while its 2D radiomics variant earns the
 # radiomics-bin tag).  Assertion-level rows are the next refinement.
 CONFIGS = ("default", "ibsi", "radiomics-bin", "hu", "aniso", "wholeslide",
-           "oversized", "f32-chip")
+           "oversized", "f32-gpu")
 ORACLE_OF = {
     "test_intensity.py": ("numpy-oracle", "oracle", ("default",)),
     "test_ih.py": ("numpy-oracle", "oracle", ("ibsi", "hu")),
@@ -82,8 +82,8 @@ ORACLE_OF = {
                       ("aniso",)),
     "test_wholeslide_parity.py": ("reference-binary-csv", "golden",
                                   ("wholeslide",)),
-    "test_tpu_device.py": ("cpu-f64-crosscheck", "invariant",
-                           ("f32-chip",)),
+    "test_gpu_device.py": ("cpu-f64-crosscheck", "invariant",
+                           ("f32-gpu",)),
     "test_oversized.py": ("trivial-path-parity", "invariant",
                           ("oversized", "radiomics-bin")),
     "test_surface3d.py": ("analytic", "oracle", ("default",)),
@@ -100,7 +100,7 @@ ORACLE_OF = {
 # modules that assert EVERY column produced by an expanded group request
 # (a per-column numeric assert_allclose loop), so nickname expansion is an
 # honest claim of per-feature numeric coverage
-NICK_OK = {"test_reference_parity.py", "test_tpu_device.py",
+NICK_OK = {"test_reference_parity.py", "test_gpu_device.py",
            "test_oversized.py", "test_aniso.py",
            "test_wholeslide_parity.py", "test_config_parity.py"}
 

@@ -26,7 +26,7 @@ def main():
         "version": "0.4.0",
         "containerId": "nyxus-tpu:0.4.0",
         "title": "Nyxus-TPU feature extraction",
-        "description": "TPU-native scalable image feature extraction "
+        "description": "Scalable image feature extraction on JAX accelerators "
                        "(Nyxus-compatible feature set and output contract)",
         "author": "",
         "institution": "",

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Measure FRESH-CACHE compile time for the *ALL* and *3D_ALL* megakernels
-(VERDICT r2 next-step #9: fresh-cache cost was unmeasured).
+"""Measure FRESH-CACHE compile time for the *ALL* and *3D_ALL* megakernels.
 
-Runs each workload in a subprocess with a THROWAWAY compilation-cache dir so
-nothing warm leaks in, then once more with the warm dir to report the
-persistent-cache reload cost.  Writes COMPILE_TIMES.json at the repo root.
+Runs each workload in a subprocess whose JAX_COMPILATION_CACHE_DIR is a
+THROWAWAY directory -- on purpose, so nothing warm leaks in and the first
+run measures a cold compile -- then once more with that now-warm directory
+to report the persistent-cache reload cost.  Prints the times as JSON.
 """
 
 import json
@@ -18,9 +18,6 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SNIPPET_2D = """
 import sys, time; sys.path.insert(0, %(root)r)
-import jax
-jax.config.update("jax_compilation_cache_dir", %(cache)r)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
 import bench
 from nyxus_tpu import taxonomy as tx
 from nyxus_tpu.config import EngineConfig
@@ -34,9 +31,6 @@ print("FIRST_RUN_SECONDS", time.perf_counter() - t0)
 
 SNIPPET_3D = """
 import sys, time, numpy as np; sys.path.insert(0, %(root)r)
-import jax
-jax.config.update("jax_compilation_cache_dir", %(cache)r)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
 from nyxus_tpu import taxonomy as tx
 from nyxus_tpu.config import EngineConfig
 from nyxus_tpu.pipeline.runner3d import VolumeRunner
@@ -52,11 +46,11 @@ print("FIRST_RUN_SECONDS", time.perf_counter() - t0)
 
 def run(snippet, cache, env_extra=None):
     env = dict(os.environ)
+    env["JAX_COMPILATION_CACHE_DIR"] = cache
     if env_extra:
         env.update(env_extra)
     t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-c",
-                        snippet % dict(root=HERE, cache=cache)],
+    p = subprocess.run([sys.executable, "-c", snippet % dict(root=HERE)],
                        capture_output=True, text=True, timeout=3600, env=env)
     wall = time.perf_counter() - t0
     first = None
@@ -71,9 +65,6 @@ def run(snippet, cache, env_extra=None):
 
 SNIPPET_SUBSET = """
 import sys, time; sys.path.insert(0, %(root)r)
-import jax
-jax.config.update("jax_compilation_cache_dir", %(cache)r)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
 import bench
 from nyxus_tpu import taxonomy as tx
 from nyxus_tpu.config import EngineConfig
@@ -119,8 +110,7 @@ def main():
         }
         print("ALL_2d_aot", out["ALL_2d_aot"])
 
-    with open(os.path.join(HERE, "COMPILE_TIMES.json"), "w") as f:
-        json.dump(out, f, indent=2)
+    print(json.dumps(out, indent=2))
 
 
 if __name__ == "__main__":

@@ -20,11 +20,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-
 import bench  # noqa: E402
 
 

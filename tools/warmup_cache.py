@@ -7,7 +7,7 @@ compiled and cached -- the universal slide program at each output-row
 quantum (Nq 128/320/576 at the shared 2 MB buffer signature), the >64 px
 per-bucket flat kernels, and (with --full) the common feature-group
 subsets and the f64 lane.  A fresh process afterwards reaches its first
-row at cache-load speed (COMPILE_TIMES.json tracks both costs).
+row at cache-load speed (tools/measure_compile.py measures both costs).
 
 Usage:
     python tools/warmup_cache.py [--full] [--precision f32|f64]
@@ -20,11 +20,6 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-import jax
-
-jax.config.update("jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
 
 # also persist the serialized program (skips the fresh-process re-trace,
 # pipeline/aot_cache.py) unless the caller already chose a location
