@@ -65,6 +65,33 @@ def make_grid_slide(h=512, w=512, seed=3):
     return inten, lab
 
 
+COMET_LABEL = 60000
+
+
+def make_comet_slide(side=2048, seed=9):
+    """A side^2 u16 pair for the streamed phase-3 path, after
+    tools/bench_streamed.py: a 64-px grid of 22x26 px ROIs and one giant
+    "comet" ROI (COMET_LABEL; ~1 Mpix at side 2048) drawn over them -- an
+    ellipse with a tapering tail, mirror-symmetric about its middle row,
+    whose centroid lies ~0.09*side left of its AABB centre.  Uniform random
+    intensities in [1, 40000)."""
+    r = np.random.default_rng(seed)
+    intens = r.integers(1, 40000, (side, side)).astype(np.uint16)
+    labels = np.zeros((side, side), np.uint16)
+    k = 1
+    for y in range(20, side - 40, 64):
+        for x in range(20, side - 40, 64):
+            labels[y:y + 22, x:x + 26] = k
+            k += 1
+    yy, xx = np.mgrid[0:side, 0:side]
+    cy, cx, tip = side / 2, 0.37 * side, 0.97 * side
+    comet = (((yy - cy) / (0.195 * side)) ** 2
+             + ((xx - cx) / (0.34 * side)) ** 2) <= 1.0
+    comet |= (xx >= cx) & (np.abs(yy - cy) <= 0.3 * (tip - xx))
+    labels[comet] = COMET_LABEL
+    return intens, labels
+
+
 def make_blob_volume(seed=4, shape=(48, 56, 60)):
     """3D pair: one ellipsoidal blob (label 3) filling ~0.84 of each axis
     plus a 4^3 cube (label 1), uniform random intensities in [1, 900)."""

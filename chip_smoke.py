@@ -8,15 +8,19 @@ Phases (one card, ``python chip_smoke.py``):
      the reference binary's CSV, f32 vs that f64 run.
   b. 3D ``*3D_ALL*`` through VolumeRunner on the 48x56x60 fixture volume:
      f64 vs the reference binary's CSV, f32 vs that f64 run.
-  c. ImageQuality ``*ALL_IMQ*``: f32 vs f64 on a 1024^2 frame with ROIs and
-     as a whole frame, and one whole frame streamed through the c128
-     power-spectrum path (f64) vs the same frame in memory.
+  c. ImageQuality ``*ALL_IMQ*`` on a 1024^2 frame, per ROI and as a whole
+     frame.  In-memory IMQ is host numpy at f64 whatever the precision; the
+     streamed path (ram_limit) runs its power spectrum on the card, as a
+     c64 FFT at f32 and a c128 FFT at f64.  Checks: streamed f32 and
+     streamed f64 vs in-memory f64.
   d. The CLI, ``--features=*ALL* --outputType=singlecsv``, over eight
      distinct 1024^2 OME-Zarr slide pairs (~2,400 ROIs x 747 columns): row
-     count and header, finite values, and slide 1's rows vs an f64 CLI run
-     of that slide.
-  e. One ~1 Mpix ROI forced through the RAM gate (streamed phase 3) vs the
-     same pair untiled, ``*ALL*`` at f64.
+     count and header, finite values, and slide 1's rows vs
+     ``Nyxus(precision="f64").featurize_files`` on that slide's pair.
+  e. bench.make_comet_slide: ~800 small ROIs and one ~1 Mpix ROI whose
+     centroid lies ~180 px from its AABB centre, as one OME-Zarr pair
+     streamed under a RAM limit that sends the giant through phase 3, vs
+     the same pair untiled, ``*ALL*`` at f64.
 
 The f32 runs (a-d) and then the f64 runs (a-e) each run concurrently on
 threads, so their programs compile in parallel; their times overlap.
@@ -55,9 +59,7 @@ REF_3D = os.path.join(ROOT, "tests", "data", "ref_3d_48x56x60_seed4.csv.gz")
 # sizes of the phases
 CORPUS_SLIDES = 8          # phase d: 1024^2 slides (bench.make_dsb_like)
 IMQ_SIDE = 1024            # phase c frame side
-GIANT_SIDE = 2048          # phase e slide side
-GIANT_AXES = (400, 800)    # phase e ellipse semi-axes (~1.0 Mpix)
-GIANT_LABEL = 60000
+GIANT_SIDE = 2048          # phase e slide side (comet of ~1 Mpix)
 GIANT_RAM_LIMIT_MB = 16    # streams the slide and makes the giant oversized
 
 
@@ -201,7 +203,7 @@ def run_imq(precision, ram_limit=None):
 
 # -- phase d: CLI over the OME-Zarr corpus ------------------------------------
 
-def run_cli(corpus, outdir, precision, pattern=".*"):
+def run_cli(corpus, outdir):
     """The CLI's singlecsv run; returns (table, wall s, first-row s) where
     first row is when the output CSV first holds data."""
     import pandas as pd
@@ -210,8 +212,7 @@ def run_cli(corpus, outdir, precision, pattern=".*"):
     out = os.path.join(outdir, "NyxusFeatures.csv")
     argv = ["--features=*ALL*", "--intDir=%s" % os.path.join(corpus, "int"),
             "--segDir=%s" % os.path.join(corpus, "seg"),
-            "--outDir=" + outdir, "--outputType=singlecsv",
-            "--filePattern=" + pattern, "--precision=" + precision]
+            "--outDir=" + outdir, "--outputType=singlecsv"]
     first = []
     done = threading.Event()
     t0 = time.perf_counter()
@@ -247,19 +248,14 @@ def slide_rows(df, name):
     return rows.set_index("ROI_label")[cli_header()[4:]]
 
 
+def run_slide_api(corpus, name, precision):
+    """One slide pair of the corpus through ``Nyxus.featurize_files``."""
+    from nyxus_tpu import Nyxus
+    return Nyxus(["*ALL*"], precision=precision).featurize_files(
+        [os.path.join(corpus, "int", name)], [os.path.join(corpus, "seg", name)])
+
+
 # -- phase e: one giant streamed ROI ------------------------------------------
-
-def make_giant():
-    """A GIANT_SIDE^2 u16 pair holding one ~1 Mpix ellipse (GIANT_LABEL)
-    over uniform random intensities."""
-    n = GIANT_SIDE
-    r = np.random.default_rng(9)
-    intens = r.integers(1, 40000, (n, n)).astype(np.uint16)
-    ry, rx = GIANT_AXES
-    yy, xx = np.mgrid[0:n, 0:n]
-    blob = (((yy - n // 2) / ry) ** 2 + ((xx - n // 2) / rx) ** 2) <= 1.0
-    return intens, blob.astype(np.uint16) * GIANT_LABEL
-
 
 def write_pair(d, intens, labels):
     from nyxus_tpu.io.zarr import write_zarr
@@ -267,6 +263,32 @@ def write_pair(d, intens, labels):
     write_zarr(ip, intens, chunks=(1, 1, 1, 512, 512))
     write_zarr(lp, labels, chunks=(1, 1, 1, 512, 512))
     return ip, lp
+
+
+def check_giant(rep, labels, st, mem):
+    """Phase e's checks: the streamed run (``st``) vs the untiled one
+    (``mem``) on the comet slide ``labels``."""
+    import bench
+    from nyxus_tpu import parity
+    giant = bench.COMET_LABEL
+    ys, xs = np.nonzero(labels == giant)
+    off = xs.mean() - (xs.min() + xs.max()) / 2.0
+    n_rois = len(np.unique(labels[labels > 0]))
+    rep.require("e rows", list(st.ROI_label) == list(mem.ROI_label)
+                and len(st) == n_rois,
+                "%d ROIs: %d small + one of %d px, centroid %.1f px from "
+                "its AABB centre" % (len(st), n_rois - 1, len(ys), off))
+    res, unserved = parity.compare_streamed_roi(mem, st, giant)
+    rep.require("e every column served", not unserved,
+                "unserved: %r" % unserved[:10])
+    rep.check("e giant streamed vs untiled", res, min_checked=640)
+    small_st = st[st.ROI_label != giant].set_index("ROI_label")
+    small_mem = mem[mem.ROI_label != giant].set_index("ROI_label")
+    feats = list(mem.columns[4:])
+    rep.check("e small ROIs streamed vs untiled",
+              parity.compare_allclose(small_st, small_mem, feats,
+                                      rtol=1e-9, atol=1e-12),
+              min_checked=700, extra="  (%d ROIs)" % len(small_st))
 
 
 # -- phase f: four cards ------------------------------------------------------
@@ -290,6 +312,9 @@ def four_cards(rep):
                                   feats, rtol=1e-9, atol=1e-12)
     rep.check("f 4 cards vs 1 (f64)", res, min_checked=600,
               extra="  (%d ROIs)" % len(d1))
+    for c, raw in parity.ZERO_BY_CONSTRUCTION.items():
+        print("      %s: max |4 cards - 1| %.3g; max |%s| %.3g"
+              % (c, np.abs(d4[c] - d1[c]).max(), raw, np.abs(d1[raw]).max()))
     mesh_ids = sorted(d.id for d in nyx4._runner.mesh.devices.flat)
     peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use", 0)
              for d in devs]
@@ -317,7 +342,7 @@ def one_card(rep, work):
 
     corpus, n_rois = bench.write_corpus(CORPUS_SLIDES,
                                         os.path.join(work, "corpus"))
-    giant = make_giant()
+    giant = bench.make_comet_slide(GIANT_SIDE)
     gdir = os.path.join(work, "giant")
     os.makedirs(gdir)
     gpaths = write_pair(gdir, *giant)
@@ -326,13 +351,13 @@ def one_card(rep, work):
     r = run_stage([
         ("a 2D *ALL* f32", run_2d, "f32"),
         ("b 3D *3D_ALL* f32", run_3d, "f32"),
-        ("c IMQ f32", run_imq, "f32"),
+        ("c IMQ f32 streamed", run_imq, "f32", 1),
         ("d CLI *ALL* f32 (%d slides)" % CORPUS_SLIDES, run_cli, corpus,
-         os.path.join(work, "out32"), "f32")])
+         os.path.join(work, "out32"))])
     for name, (res, t) in r.items():
         first = res[2] if name.startswith("d ") else t
         rep.timing(name, t, first)
-    (a32, _), (b32, _), (c32, _), ((d32, _, _), _) = r.values()
+    (a32, _), (b32, _), (c32s, _), ((d32, _, _), _) = r.values()
     feats = cli_header()
     rep.require("d rows", len(d32) == n_rois,
                 "%d rows for %d labels discovered" % (len(d32), n_rois))
@@ -348,19 +373,19 @@ def one_card(rep, work):
     r = run_stage([
         ("a 2D *ALL* f64", run_2d, "f64"),
         ("b 3D *3D_ALL* f64", run_3d, "f64"),
-        ("c IMQ f64", run_imq, "f64"),
+        ("c IMQ f64 in memory (host)", run_imq, "f64"),
         ("c IMQ f64 streamed", run_imq, "f64", 1),
-        ("d CLI *ALL* f64 (slide 1)", run_cli, corpus,
-         os.path.join(work, "out64"), "f64", r"slide1\.ome\.zarr"),
-        ("e streamed giant ROI f64",
+        ("d API *ALL* f64 (slide 1)", run_slide_api, corpus,
+         "slide1.ome.zarr", "f64"),
+        ("e streamed comet slide f64",
          Nyxus(["*ALL*"], ram_limit=GIANT_RAM_LIMIT_MB,
                precision="f64").featurize_files, [gpaths[0]], [gpaths[1]]),
         ("e untiled f64", Nyxus(["*ALL*"], precision="f64").featurize,
          *giant)])
-    for name, (res, t) in r.items():
-        rep.timing(name, t, res[2] if name.startswith("d ") else t)
-    ((a64, _), (b64, _), (c64, _), ((_, c64s), _), ((d64, _, _), _),
-     (st, _), (mem, _)) = r.values()
+    for name, (_, t) in r.items():
+        rep.timing(name, t, t)
+    ((a64, _), (b64, _), (c64, _), (c64s, _), (d64, _), (st, _),
+     (mem, _)) = r.values()
 
     rep.check("a f64 vs reference binary", compare_2d_reference(a64),
               min_checked=600)
@@ -368,26 +393,20 @@ def one_card(rep, work):
     rep.check("b f64 vs reference binary", compare_3d_reference(b64),
               min_checked=200)
     rep.check("b f32 vs f64", parity.compare_f32(b32, b64), min_checked=150)
-    for part, dev, ref in (("rois", c32[0], c64[0]),
-                           ("whole frame", c32[1], c64[1])):
-        rep.check("c f32 vs f64 (%s)" % part,
-                  parity.compare_allclose(dev, ref, IMQ_COLS,
+    # the in-memory side is host numpy; the streamed side's spectrum is the
+    # card's FFT (c64 at f32, c128 at f64)
+    for i, part in enumerate(("rois", "whole frame")):
+        rep.check("c f32 streamed vs f64 (%s)" % part,
+                  parity.compare_allclose(c32s[i], c64[i], IMQ_COLS,
                                           rtol=parity.F32_TOL, atol=1e-6))
-    rep.check("c streamed vs in-memory f64",
-              parity.compare_allclose(c64s, c64[1], IMQ_COLS,
-                                      rtol=parity.IMQ_STREAMED_RTOL,
-                                      atol=0.0))
-    rep.check("d slide 1 f32 vs f64",
+        rep.check("c f64 streamed vs f64 (%s)" % part,
+                  parity.compare_allclose(c64s[i], c64[i], IMQ_COLS,
+                                          rtol=parity.IMQ_STREAMED_RTOL))
+    rep.check("d slide 1 CLI f32 vs API f64",
               parity.compare_f32(slide_rows(d32, "slide1.ome.zarr"),
                                  slide_rows(d64, "slide1.ome.zarr")),
               min_checked=600)
-    area = int((giant[1] == GIANT_LABEL).sum())
-    rep.require("e rows", list(st.ROI_label) == list(mem.ROI_label),
-                "%d ROI(s), giant ROI %d px" % (len(st), area))
-    res, unserved = parity.compare_streamed_roi(mem, st, GIANT_LABEL)
-    rep.require("e every column served", not unserved,
-                "unserved: %r" % unserved[:10])
-    rep.check("e streamed vs untiled", res, min_checked=640)
+    check_giant(rep, giant[1], st, mem)
 
 
 def main(argv=None):

@@ -78,8 +78,6 @@ def build_parser():
     a("--useGpu", default="true")
     a("--gpuDeviceID", type=int, default=-1)
     a("--exclusivetiming", default="false")
-    a("--precision", default="f32", choices=["f32", "f64"],
-      help="device compute precision (f64 turns on JAX's 64-bit mode)")
     return p
 
 
@@ -164,13 +162,8 @@ def main(argv=None):
         Stopwatch.enable()
         Stopwatch.exclusive = _truthy(args.exclusivetiming)
 
-    if args.precision == "f64":
-        import jax
-        jax.config.update("jax_enable_x64", True)
-
     common = dict(
         features=[t for t in args.features.split(",") if t],
-        precision=args.precision,
         coarse_gray_depth=args.coarseGrayDepth,
         neighbor_distance=args.pixelDistance,
         ibsi=_truthy(args.ibsi),

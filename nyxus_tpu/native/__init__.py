@@ -45,18 +45,35 @@ _LIBS = {
 }
 
 # -march=native: the library is built on the host that loads it, and the
-# stamp below rebuilds it when it was copied from another CPU.
+# stamp below rebuilds it when it was copied from another CPU.  Loading an
+# up-to-date build needs no compiler.
 # -ffp-contract=off: FMA contraction would change double rounding and break
 # bit-parity with the reference/oracle float semantics.
 _CFLAGS = ("-O3", "-march=native", "-ffp-contract=off")
 
 
+def _cpu_identity() -> str:
+    """What ``-march=native`` resolves from, read without a compiler: the
+    vendor, family, model and feature flags of the first CPU in
+    /proc/cpuinfo, else the platform's machine and processor names."""
+    keys = ("vendor_id", "cpu family", "model", "model name", "flags",
+            "Features", "CPU implementer", "CPU part")
+    try:
+        with open("/proc/cpuinfo") as f:
+            first = f.read().split("\n\n")[0]
+    except OSError:
+        first = ""
+    lines = [ln for ln in first.splitlines()
+             if ln.split(":")[0].strip() in keys]
+    if not lines:
+        import platform
+        lines = [platform.machine(), platform.processor()]
+    return "\n".join(lines)
+
+
 def _stamp() -> str:
-    """Compile flags plus the host's identity: the target options g++
-    resolves ``-march=native`` to on this CPU."""
-    proc = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
-                          capture_output=True, text=True, timeout=60)
-    host = hashlib.sha256(proc.stdout.encode()).hexdigest()
+    """Compile flags plus a hash of the host CPU's identity."""
+    host = hashlib.sha256(_cpu_identity().encode()).hexdigest()
     return " ".join(_CFLAGS) + " host=" + host
 
 
@@ -166,7 +183,8 @@ def _load():
         lib.nyx_geom_batch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_long,
             ctypes.c_uint32, ctypes.c_double, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int]
         lib.nyx_neighbors_batch.restype = None
@@ -645,8 +663,8 @@ def discover(labels_img, intens, want_clouds=False,
     return recs, fmm, float(extrema[0]), float(extrema[1]), clouds
 
 
-def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,
-               out=None, want_logw=False, n_threads=None):
+def geom_batch(clouds, contours, recs_mat, flags, hull_points, groups,
+               logw_eps=0.0, out=None, want_logw=False, n_threads=None):
     """One-call batched host-geometry pass (contour stats, fractal perimeter,
     convex hull features, 3 calipers, chords, ROI radius, radial
     distribution, weighted-moment log distances) over all ROIs.
@@ -655,7 +673,9 @@ def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,
     raster-order pixel clouds; contours: (flat [K,3] int64, offsets[n+1])
     merged contours in +1-shifted local coords; recs_mat: [n, 9] int64
     (x0, x1, y0, y1, rep_x0, rep_x1, rep_y0, rep_y1, area); flags: uint8[n]
-    bit0 has_cloud, bit1 hull_from_contour; groups: bitmask (GEOM_GROUPS in
+    bit0 has_cloud, bit1 hull_from_points; hull_points: (flat [M,2] int64
+    global (x, y), offsets[n+1]) hull candidates of the bit1 rows;
+    groups: bitmask (GEOM_GROUPS in
     pipeline.hostfeats); out: pre-filled [n, nyx_geom_width] sentinel matrix.
     Returns (out, logw_flat | None)."""
     lib = _load()
@@ -663,6 +683,7 @@ def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,
         raise RuntimeError("native library unavailable: %r" % _build_err)
     gx, gy, it, coff = clouds
     ctr, koff = contours
+    hpts, hoff = hull_points
     n = len(recs_mat)
     if out is None:
         out = np.zeros((n, lib.nyx_geom_width()), np.float64)
@@ -673,6 +694,8 @@ def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,
     coff = np.ascontiguousarray(coff, np.int64)
     ctr = np.ascontiguousarray(ctr, np.int64)
     koff = np.ascontiguousarray(koff, np.int64)
+    hpts = np.ascontiguousarray(hpts, np.int64)
+    hoff = np.ascontiguousarray(hoff, np.int64)
     recs_mat = np.ascontiguousarray(recs_mat, np.int64)
     flags = np.ascontiguousarray(flags, np.uint8)
     lib.nyx_geom_batch(
@@ -682,7 +705,9 @@ def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,
         ctr.ctypes.data_as(ctypes.c_void_p),
         koff.ctypes.data_as(ctypes.c_void_p),
         recs_mat.ctypes.data_as(ctypes.c_void_p),
-        flags.ctypes.data_as(ctypes.c_void_p), n, groups, logw_eps,
+        flags.ctypes.data_as(ctypes.c_void_p),
+        hpts.ctypes.data_as(ctypes.c_void_p),
+        hoff.ctypes.data_as(ctypes.c_void_p), n, groups, logw_eps,
         out.ctypes.data_as(ctypes.c_void_p),
         logw.ctypes.data_as(ctypes.c_void_p) if want_logw else None,
         n_threads or _n_threads())

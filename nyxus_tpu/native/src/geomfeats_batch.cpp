@@ -122,7 +122,9 @@ struct GeomIn {
     const int64_t* ctr;     // contour triples (x, y, inten), local +1 coords
     const int64_t* koff;    // [n+1] contour POINT offsets
     const int64_t* recs;    // [n, 9] x0, x1, y0, y1, rx0, rx1, ry0, ry1, area
-    const uint8_t* flags;   // bit0 has_cloud, bit1 hull_from_contour
+    const uint8_t* flags;   // bit0 has_cloud, bit1 hull_from_points
+    const int64_t* hpts;    // hull candidate (x, y) pairs, global coords
+    const int64_t* hoff;    // [n+1] hull candidate POINT offsets
     long n;
     uint32_t groups;
     double logw_eps;
@@ -140,7 +142,7 @@ void geom_one(const GeomIn& in, long r) {
     long ka = in.koff[r], kb = in.koff[r + 1];
     long K = kb - ka;
     bool has_cloud = in.flags[r] & 1;
-    bool hull_from_contour = in.flags[r] & 2;
+    bool hull_from_points = in.flags[r] & 2;
     double* out = in.out + r * GEOM_W;
 
     // contour coords as double (local +1)
@@ -190,17 +192,17 @@ void geom_one(const GeomIn& in, long r) {
         const int64_t* hys = nullptr;
         long npts = 0;
         std::vector<int64_t> tx, ty;
-        if (hull_from_contour) {
-            // oversized: hull of the streamed contour equals the hull of the
-            // pixel cloud; contour coords carry the +1 shift
-            if (K > 0) {
-                tx.resize(K); ty.resize(K);
-                for (long i = 0; i < K; i++) {
-                    tx[i] = in.ctr[(ka + i) * 3] - 1 + x0;
-                    ty[i] = in.ctr[(ka + i) * 3 + 1] - 1 + y0;
-                }
-                hxs = tx.data(); hys = ty.data(); npts = K;
+        if (hull_from_points) {
+            // oversized: each column's top and bottom pixel, the only pixels
+            // that can be hull vertices (the contour can miss some)
+            long ha = in.hoff[r], hb = in.hoff[r + 1];
+            npts = hb - ha;
+            tx.resize(npts); ty.resize(npts);
+            for (long i = 0; i < npts; i++) {
+                tx[i] = in.hpts[(ha + i) * 2];
+                ty[i] = in.hpts[(ha + i) * 2 + 1];
             }
+            hxs = tx.data(); hys = ty.data();
         } else if (has_cloud && P > 0) {
             hxs = in.gx + ca; hys = in.gy + ca; npts = P;
         }
@@ -339,11 +341,12 @@ int nyx_geom_width() { return GEOM_W; }
 void nyx_geom_batch(const int64_t* gx, const int64_t* gy, const double* inten,
                     const int64_t* coff, const int64_t* ctr,
                     const int64_t* koff, const int64_t* recs,
-                    const uint8_t* flags, long n, uint32_t groups,
+                    const uint8_t* flags, const int64_t* hpts,
+                    const int64_t* hoff, long n, uint32_t groups,
                     double logw_eps, double* out, double* logw,
                     int n_threads) {
-    GeomIn in{gx, gy, inten, coff, ctr, koff, recs, flags, n, groups,
-              logw_eps, out, logw};
+    GeomIn in{gx, gy, inten, coff, ctr, koff, recs, flags, hpts, hoff, n,
+              groups, logw_eps, out, logw};
     if (n_threads <= 1 || n < 4) {
         for (long r = 0; r < n; r++) geom_one(in, r);
         return;

@@ -35,9 +35,14 @@ import numpy as np
 REF_TOL = 1e-4
 
 # first central moments are ~0 by construction on both sides: pure FP
-# residue, bounded by absolute size (ZERO_ABS_TOL) instead of relative error
-ZERO_BY_CONSTRUCTION = ("CENTRAL_MOMENT_01", "CENTRAL_MOMENT_10",
-                        "IMOM_CM_01", "IMOM_CM_10")
+# residue of the raw first moment they cancel (the value), so no error
+# relative to themselves applies.  Against the reference binary's CSV they
+# are bounded by absolute size (ZERO_ABS_TOL); between two runs of this
+# engine (compare_allclose), relative to that raw moment.
+ZERO_BY_CONSTRUCTION = {"CENTRAL_MOMENT_01": "SPAT_MOMENT_01",
+                        "CENTRAL_MOMENT_10": "SPAT_MOMENT_10",
+                        "IMOM_CM_01": "IMOM_RM_01",
+                        "IMOM_CM_10": "IMOM_RM_10"}
 ZERO_ABS_TOL = 1e-3
 
 # Known remaining divergences (documented, tracked)
@@ -185,8 +190,9 @@ def compare_allclose(dev, ref, columns, rtol, atol: float = 0.0) -> Comparison:
     matches NaN).  ``rtol`` is a float or a {column: rtol} map whose
     missing columns take 1e-9.  Error = max over rows of
     (|a-b| - atol) / |b|, judged against the column's rtol.
-    ZERO_BY_CONSTRUCTION columns hold FP residue on both sides: their error
-    is max |a-b|, judged against ZERO_ABS_TOL."""
+    ZERO_BY_CONSTRUCTION columns hold FP residue on both sides: their |b|
+    is replaced by |ref| of the raw first moment each maps to, which
+    ``ref`` must hold."""
     _check_rows(dev, ref)
     rows = []
     for c in columns:
@@ -199,14 +205,12 @@ def compare_allclose(dev, ref, columns, rtol, atol: float = 0.0) -> Comparison:
         if not (both | same_nonfinite).all():
             rows.append((c, float("inf"), tol))
             continue
+        scale = np.abs(b[both])
         if c in ZERO_BY_CONSTRUCTION:
-            diff = np.abs(a[both] - b[both])
-            rows.append((c, float(diff.max()) if diff.size else 0.0,
-                         ZERO_ABS_TOL))
-            continue
+            scale = np.abs(ref[ZERO_BY_CONSTRUCTION[c]].to_numpy(float)[both])
         excess = np.maximum(np.abs(a[both] - b[both]) - atol, 0.0)
         with np.errstate(divide="ignore", invalid="ignore"):
-            err = np.where(excess > 0, excess / np.abs(b[both]), 0.0)
+            err = np.where(excess > 0, excess / scale, 0.0)
         rows.append((c, float(err.max()) if err.size else 0.0, tol))
     return _judge(rows)
 

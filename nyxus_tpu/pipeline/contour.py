@@ -217,9 +217,23 @@ def merged_contour(crop_mask, crop_intens):
     return merged_contour_py(crop_mask, crop_intens)
 
 
+def column_extremes(mask):
+    """(xs, ys) local coordinates of the top- and bottom-most pixel of each
+    column of ``mask``: every convex-hull vertex of the mask is one of
+    them, and they are all build_convex_hull keeps of a pixel cloud."""
+    cols = np.nonzero(mask.any(axis=0))[0]
+    sub = mask[:, cols]
+    top = sub.argmax(axis=0)
+    bot = mask.shape[0] - 1 - sub[::-1].argmax(axis=0)
+    two = bot != top
+    return (np.concatenate([cols, cols[two]]).astype(np.int64),
+            np.concatenate([top, bot[two]]).astype(np.int64))
+
+
 def oversized_contour(rec, source, cap_bytes: int = 1 << 30,
                       block: int = 2048):
-    """Contour of an oversized ROI without materializing its dense crop.
+    """Contour and hull candidates of an oversized ROI without
+    materializing its dense crop.
 
     The mask is assembled as a 1-byte/pixel array by streaming the AABB
     (16x cheaper than the dense compute crop whose budget overflow made the
@@ -227,20 +241,26 @@ def oversized_contour(rec, source, cap_bytes: int = 1 << 30,
     file-backed mask, contour.cpp).  The trace runs with a zero intensity
     plane (lazy zero pages; the tracer only tests mask membership), then
     contour-pixel intensities are fetched in a second streamed sweep.
-    Returns the merged contour [N, 3] (local +1 coords) or None when even
-    the byte mask would exceed ``cap_bytes``."""
+    The reference's contour can leave out boundary pixels (its loop walk
+    accepts a loop that closes early), so the convex hull is built from
+    ``column_extremes`` of the mask instead, as the dense path builds it
+    from the pixel cloud.  Returns (merged contour [N, 3] in local +1
+    coords, (xs, ys) global hull candidates), or (None, None) when even the
+    byte mask would exceed ``cap_bytes``."""
     H, W = rec.height, rec.width
     if H * W > cap_bytes:
-        return None
+        return None, None
     mask = np.zeros((H, W), bool)
     for by in range(rec.y0, rec.y1 + 1, block):
         bh = min(block, rec.y1 + 1 - by)
         _, ll = source.read_pair(by, rec.x0, bh, W)
         mask[by - rec.y0:by - rec.y0 + bh] = ll == rec.label
+    hx, hy = column_extremes(mask)
+    hull = (hx + rec.x0, hy + rec.y0)
     K = merged_contour(mask, np.zeros((H, W), np.int64))
     del mask
     if K.shape[0] == 0:
-        return K
+        return K, hull
     K = K.copy()
     ys = K[:, 1] - 1          # AABB-local row of each contour pixel
     xs = K[:, 0] - 1
@@ -251,7 +271,7 @@ def oversized_contour(rec, source, cap_bytes: int = 1 << 30,
             continue
         ii, _ = source.read_pair(by, rec.x0, bh, W)
         K[sel, 2] = ii[ys[sel] - (by - rec.y0), xs[sel]].astype(np.int64)
-    return K
+    return K, hull
 
 
 def merged_contour_py(crop_mask, crop_intens):

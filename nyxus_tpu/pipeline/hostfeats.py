@@ -50,9 +50,22 @@ _GC_MEAN_FRAC = 58
 _GC_RADIAL_CV = 66
 
 
+def _oversized_hull_source(hc, i):
+    """(xs, ys) global points whose hull is oversized row i's hull: its
+    streamed column extremes, else (whole-slide rows) its contour."""
+    if hc.hull_points[i] is not None:
+        return hc.hull_points[i]
+    K = hc.contours[i]
+    r = hc.recs[i]
+    # contour coords carry the reference's +1 shift
+    return (K[:, 0].astype(np.int64) - 1 + r.x0,
+            K[:, 1].astype(np.int64) - 1 + r.y0)
+
+
 def _geom_inputs(hc):
-    """(contours flat+offsets, recs matrix, flags) for the native geometry
-    kernel, built once per HostContext."""
+    """(contours flat+offsets, recs matrix, flags, hull candidates
+    flat+offsets) for the native geometry kernel, built once per
+    HostContext."""
     cached = getattr(hc, "_geom_inputs", None)
     if cached is not None:
         return cached
@@ -68,6 +81,8 @@ def _geom_inputs(hc):
     ctr = (np.concatenate(parts) if parts else np.zeros((0, 3), np.int64))
     recs_mat = np.zeros((n, 9), np.int64)
     flags = np.zeros(n, np.uint8)
+    hoff = np.zeros(n + 1, np.int64)
+    hparts = []
     for i, r in enumerate(hc.recs):
         if r.report_bbox is not None:
             ry0, ry1, rx0, rx1 = r.report_bbox
@@ -75,9 +90,16 @@ def _geom_inputs(hc):
             ry0, ry1, rx0, rx1 = r.y0, r.y1, r.x0, r.x1
         recs_mat[i] = (r.x0, r.x1, r.y0, r.y1, rx0, rx1, ry0, ry1, r.area)
         # oversized rows have no dense pixel access; their hull comes from
-        # the streamed contour (every hull vertex is a boundary pixel)
+        # their streamed column extremes
         flags[i] = 1 if hc.pixels_ok(i) else 2
-    hc._geom_inputs = ((ctr, koff), recs_mat, flags)
+        hk = 0
+        if flags[i] == 2 and ctr_list[i] is not None:
+            hx, hy = _oversized_hull_source(hc, i)
+            hparts.append(np.stack([hx, hy], axis=1).astype(np.int64))
+            hk = len(hx)
+        hoff[i + 1] = hoff[i] + hk
+    hpts = (np.concatenate(hparts) if hparts else np.zeros((0, 2), np.int64))
+    hc._geom_inputs = ((ctr, koff), recs_mat, flags, (hpts, hoff))
     return hc._geom_inputs
 
 
@@ -112,7 +134,7 @@ def compute_geom(hc, cfg, families, want_logw=False, logw_eps=0.0,
             groups |= G_LOGW_D2
     if groups == 0:
         return False
-    contours, recs_mat, flags = _geom_inputs(hc)
+    contours, recs_mat, flags, hull_points = _geom_inputs(hc)
     n = len(hc.recs)
     out = getattr(hc, "geom", None)
     if out is None:
@@ -122,7 +144,8 @@ def compute_geom(hc, cfg, families, want_logw=False, logw_eps=0.0,
         out[:, _GC_FRAC_AT_D:GEOM_W] = -0.0
     want_lw = bool(groups & G_LOGW)
     out, logw = native.geom_batch(hc.clouds, contours, recs_mat, flags,
-                                  groups, logw_eps=logw_eps, out=out,
+                                  hull_points, groups, logw_eps=logw_eps,
+                                  out=out,
                                   want_logw=want_lw)
     hc.geom = out
     if want_lw:
@@ -214,17 +237,13 @@ def convex_hull_features(hc, cfg):
     for i, r in enumerate(hc.recs):
         if hc.pixels_ok(i):
             ys, xs = hc.roi_points(i)
+            xs, ys = xs + r.x0, ys + r.y0
         else:
-            # oversized ROI: every hull vertex is a boundary pixel, so the
-            # hull of the streamed contour equals the hull of the full
-            # pixel cloud (contour coords carry the reference's +1 shift)
-            K = hc.contours[i]
-            xs = K[:, 0].astype(np.int64) - 1
-            ys = K[:, 1].astype(np.int64) - 1
+            xs, ys = _oversized_hull_source(hc, i)
         # hull in GLOBAL coordinates: the reference's caliper rotations
         # float32-round the rotated GLOBAL vertices (rotation.cpp:66), and
         # float32 rounding is not translation-invariant
-        hull = build_convex_hull(xs + r.x0, ys + r.y0)
+        hull = build_convex_hull(xs, ys)
         hc.hulls[i] = hull
         s_hull = polygon_area(hull) + hull_boundary_points(hull) / 2.0 + 1.0
         s_roi = r.area

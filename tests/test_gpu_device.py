@@ -1,6 +1,6 @@
-"""GPU lane: every 2D and 3D family and the image-quality families execute
-on the card in production f32 (every matmul, einsum and convolution at
-HIGHEST precision) and are compared against a CPU float64 run of the SAME
+"""GPU lane: every 2D and 3D family and the streamed image-quality path
+execute on the card in production f32 (every matmul, einsum and convolution
+at HIGHEST precision) and are compared against a CPU float64 run of the SAME
 engine at the shared f32 tiers of nyxus_tpu.parity.
 
 Run on a machine with a GPU:  python -m pytest tests/ -m gpu -q
@@ -125,13 +125,13 @@ def test_3d_families_on_device(tmp_path, gpu_device):
 
 @pytest.mark.gpu
 def test_imq_families_on_device(tmp_path, gpu_device):
-    """All four IMQ families (6 features) through the production f32
-    engine on the card vs the same engine at f64 on CPU
-    (VERDICT r4 missing #3: the IMQ row had no f32-chip cell).  Uses
-    "*ALL_IMQ*" per-column assertions: FOCUS_SCORE, LOCAL_FOCUS_SCORE,
-    POWER_SPECTRUM_SLOPE, MIN_SATURATION, MAX_SATURATION, SHARPNESS
-    (reference: focus_score.h:12-30, power_spectrum.h, saturation.h,
-    sharpness.h)."""
+    """All four IMQ families (6 features) at f32, streamed (ram_limit=1),
+    vs the in-memory path at f64 on CPU.  In-memory IMQ is host numpy at
+    f64 whatever the precision, so only the streamed path reaches the card:
+    its power spectrum is a c64 FFT there.  Per-column assertions:
+    FOCUS_SCORE, LOCAL_FOCUS_SCORE, POWER_SPECTRUM_SLOPE, MIN_SATURATION,
+    MAX_SATURATION, SHARPNESS (reference: focus_score.h:12-30,
+    power_spectrum.h, saturation.h, sharpness.h)."""
     from nyxus_tpu import ImageQuality
 
     r = np.random.default_rng(21)
@@ -139,7 +139,7 @@ def test_imq_families_on_device(tmp_path, gpu_device):
     lab = np.zeros(img.shape, np.int32)
     lab[4:44, 6:60] = 1
     lab[50:90, 20:100] = 2
-    dev = ImageQuality(precision="f32").featurize(img, lab)
+    dev = ImageQuality(precision="f32", ram_limit=1).featurize(img, lab)
 
     out_csv = str(tmp_path / "imq_cpu64.csv")
     script = (

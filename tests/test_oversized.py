@@ -247,26 +247,41 @@ def test_oversized_all_group_parity():
     assert res.ok, "streamed values diverge: %r" % res.failures[:20]
 
 
-def test_streamed_central_moments_at_mpix_scale():
-    """A ~1 Mpix ROI: the streamed central moments match direct f64 sums
-    about the centroid at the streamed-parity moment tier.  Sums taken
-    from the AABB origin lose ~1e-13 of x^3 y^3-scale magnitudes to the
-    binomial shift, more than the tier allows at this size; sums about the
-    AABB centre keep them (pipeline/oversized.accumulate)."""
-    from nyxus_tpu import parity
-    from nyxus_tpu.ops import moments as mm
-    from nyxus_tpu.pipeline import oversized as ovs
-    from nyxus_tpu.pipeline.labels import RoiRecord
-    from nyxus_tpu.pipeline.sources import ArrayPairSource
-
+def _mpix_roi(shape):
+    """(intensities, labels, label) of a ~1 Mpix ROI: an ellipse centred on
+    its AABB, or bench's comet (centroid ~190 px left of its AABB centre)
+    among small ROIs."""
+    if shape == "comet":
+        intens, labels = bench.make_comet_slide()
+        return intens.astype(np.float64), labels, bench.COMET_LABEL
     H, W = 820, 1620
     yy, xx = np.mgrid[0:H, 0:W]
     lab = ((((yy - 410) / 400.0) ** 2 + ((xx - 810) / 800.0) ** 2)
            <= 1.0).astype(np.int64) * 3
     intens = np.random.default_rng(9).integers(1, 40000, (H, W)).astype(
         np.float64)
-    ys, xs = np.nonzero(lab)
-    rec = RoiRecord(3, len(ys), int(ys.min()), int(ys.max()),
+    return intens, lab, 3
+
+
+@pytest.mark.parametrize("shape", ["centred_ellipse", "comet"])
+def test_streamed_central_moments_at_mpix_scale(shape):
+    """A ~1 Mpix ROI: the streamed central moments match direct f64 sums
+    about the centroid at the streamed-parity moment tier.  Sums taken
+    from the AABB origin lose ~1e-13 of x^3 y^3-scale magnitudes to the
+    binomial shift, more than the tier allows on the centred ellipse, whose
+    odd central moments vanish; sums about the AABB centre keep them
+    (pipeline/oversized.accumulate), also when the centroid lies far from
+    that centre (the comet)."""
+    from nyxus_tpu import parity
+    from nyxus_tpu.ops import moments as mm
+    from nyxus_tpu.pipeline import oversized as ovs
+    from nyxus_tpu.pipeline.labels import RoiRecord
+    from nyxus_tpu.pipeline.sources import ArrayPairSource
+
+    intens, lab, label = _mpix_roi(shape)
+    ys, xs = np.nonzero(lab == label)
+    assert len(ys) > 900_000
+    rec = RoiRecord(label, len(ys), int(ys.min()), int(ys.max()),
                     int(xs.min()), int(xs.max()), 1.0, 40000.0)
     out = ovs.moments_members(ovs.accumulate(rec, ArrayPairSource(intens,
                                                                   lab)))
@@ -282,3 +297,26 @@ def test_streamed_central_moments_at_mpix_scale():
             assert abs(got - want) <= (parity.STREAMED_TOL_LOOSE * abs(want)
                                        + 1e-8 * scale), \
                 (prefix, p, q, got, want)
+
+
+def test_oversized_hull_when_contour_misses_pixels():
+    """The reference's contour of bench's comet leaves out the top of the
+    ellipse and the tip of the tail; the streamed hull (and every caliper
+    read off it) must still be the hull of the whole ROI, as on the dense
+    path, which builds it from the pixel cloud."""
+    from nyxus_tpu.pipeline import contour as cm
+
+    intens, labels = bench.make_comet_slide(512)
+    labels = np.where(labels == bench.COMET_LABEL, 1, 0).astype(np.uint16)
+    ys, xs = np.nonzero(labels)
+    K = cm.merged_contour(labels.astype(bool), intens)
+    assert K[:, 1].min() - 1 > ys.min()      # the contour misses pixels
+    feats = ["CONVEX_HULL_AREA", "SOLIDITY", "STAT_FERET_DIAM_MIN",
+             "STAT_FERET_DIAM_MAX", "STAT_MARTIN_DIAM_MEAN",
+             "STAT_NASSENSTEIN_DIAM_MEAN", "MIN_FERET_ANGLE"]
+    mem = Nyxus(feats, precision="f64").featurize(intens, labels)
+    ovr = Nyxus(feats, ram_limit=1, precision="f64").featurize(intens, labels)
+    assert 0.9 < ovr.SOLIDITY[0] <= 1.0
+    for c in feats:
+        np.testing.assert_allclose(ovr[c].to_numpy(), mem[c].to_numpy(),
+                                   rtol=1e-9, atol=1e-12, err_msg=c)

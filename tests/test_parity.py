@@ -12,19 +12,22 @@ def _frame(**cols):
 
 
 def test_allclose_rules():
+    raw = [4e6, 1e8, 5e5]                   # IMOM_RM_01 of each ROI
     ref = _frame(MEAN=[1.0, 2.0, np.nan], SHARPNESS=[1.0, 1.0, 1.0],
-                 IMOM_CM_01=[0.0, 0.0, 0.0])
+                 IMOM_CM_01=[0.0, 0.0, 0.0], IMOM_RM_01=raw)
     # rounding-level differences, NaN against NaN, FP residue of a zero
+    # (judged relative to the raw first moment it cancels from)
     dev = _frame(MEAN=[1.0 + 1e-12, 2.0, np.nan],
                  SHARPNESS=[1.0 + 5e-7, 1.0, 1.0],
-                 IMOM_CM_01=[3e-11, -2e-11, 0.0])
+                 IMOM_CM_01=[3e-10, -2e-8, 0.0], IMOM_RM_01=raw)
     res = parity.compare_allclose(dev, ref, ["MEAN", "SHARPNESS",
                                              "IMOM_CM_01"],
                                   rtol={"SHARPNESS": 1e-6})
     assert res.ok and res.checked == 3, res
     # beyond the column's rtol, a NaN against a number, a zero gone large
+    # against its raw moment (1e-3 / 5e5 = 2e-9 > 1e-9)
     bad = _frame(MEAN=[1.0, 2.0, 3.0], SHARPNESS=[1.0 + 5e-6, 1.0, 1.0],
-                 IMOM_CM_01=[2e-3, 0.0, 0.0])
+                 IMOM_CM_01=[0.0, 0.0, 1e-3], IMOM_RM_01=raw)
     res = parity.compare_allclose(bad, ref, ["MEAN", "SHARPNESS",
                                              "IMOM_CM_01"],
                                   rtol={"SHARPNESS": 1e-6})

@@ -58,6 +58,27 @@ def test_stale_host_stamp_rebuilds(tmp_path, monkeypatch):
         assert f.read() == stamp
 
 
+def test_current_build_loads_without_compiler(tmp_path, monkeypatch):
+    """An up-to-date library (a prebuilt one, say) is used as it is on a
+    host with no g++ on PATH: the host stamp needs no compiler."""
+    import ctypes
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "t.cpp").write_text('extern "C" int nyx_t() { return 7; }\n')
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_LIBS", {"libt.so": (("t.cpp",), ())})
+    out = str(tmp_path / "build")
+    lib = native.build("libt.so", out)
+    first = os.stat(lib).st_ino
+
+    empty = tmp_path / "bin"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    assert native.build("libt.so", out) == lib
+    assert os.stat(lib).st_ino == first
+    assert ctypes.CDLL(lib).nyx_t() == 7
+
+
 def test_chip_smoke_refuses_cpu():
     """chip_smoke.py exits non-zero and prints no result without a GPU."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
